@@ -1,0 +1,184 @@
+"""ResNet encoder with subset-statistics BatchNorm.
+
+Counterpart of the default path of ``simclr_tpu/models/resnet.py``:
+``Bottleneck`` (1x1 -> 3x3(stride) -> 1x1, expansion 4, with
+``shadow_bn3``) and ``ResNetEncoder`` with the CIFAR stem (3x3 stride 1, no
+max-pool) or the STL stem (7x7 stride 2, 3x3 stride-2 max-pool).
+
+Inputs are NCHW, normally in ``torch.channels_last`` memory (physically
+NHWC, as on the JAX side). Parameters are float32; convolutions run in
+``dtype`` (bfloat16 by default), casting input and weight at the call as
+flax's ``dtype`` does. Module names follow the JAX parameter tree
+(``stem_conv``, ``layer1_0.conv1``, ``layer2_0.downsample_bn``, ...), so
+``utils/weights.py`` maps the two one to one.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from simclr_tpu_torch.models.norm import SubsetBatchNorm, stats_rows
+
+# Truncated normal on [-2, 2] standard deviations has this std; flax's
+# variance_scaling divides by it so the kept draws have the asked variance.
+_TRUNC_STD = 0.87962566103423978
+
+
+def _trunc_normal_(w: torch.Tensor, std: float,
+                   generator: Optional[torch.Generator]) -> None:
+    std = std / _TRUNC_STD
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
+class Conv(nn.Conv2d):
+    """Bias-free conv computed in ``dtype``; kaiming-normal fan-out init
+    (flax ``variance_scaling(2.0, 'fan_out', 'truncated_normal')``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, ksize: int, stride: int = 1,
+                 padding: int = 0, dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_ch, out_ch, ksize, stride=stride,
+                         padding=padding, bias=False)
+        self.dtype = dtype
+        with torch.no_grad():
+            _trunc_normal_(self.weight,
+                           math.sqrt(2.0 / (out_ch * ksize * ksize)),
+                           generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), None,
+                        self.stride, self.padding)
+
+
+class Linear(nn.Linear):
+    """Dense layer computed in ``dtype``; lecun-normal init and zero bias
+    (flax ``nn.Dense`` defaults)."""
+
+    def __init__(self, in_f: int, out_f: int, bias: bool = True,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_f, out_f, bias=bias)
+        self.dtype = dtype
+        with torch.no_grad():
+            _trunc_normal_(self.weight, math.sqrt(1.0 / in_f), generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+NormFactory = Callable[[int], SubsetBatchNorm]
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3(stride) -> 1x1 bottleneck with identity or projection
+    shortcut. The 3x3 conv2 carries the stride with explicit (1, 1)
+    padding; the 1x1 convs pad nothing (SAME for a 1x1 kernel).
+
+    ``shadow_bn3``: in training, bn3 and downsample_bn take their
+    statistics from a second, parameter-shared conv call on the leading k
+    input rows. The values are those of slicing the conv output; the
+    gradients reach the same totals through the shadow call."""
+
+    expansion = 4
+
+    def __init__(self, in_features: int, features: int, stride: int,
+                 norm: NormFactory, dtype: torch.dtype,
+                 stats_fraction: float, shadow_bn3: bool = False,
+                 min_stats_samples: int = 64,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        out = features * self.expansion
+        self.stats_fraction = stats_fraction
+        self.min_stats_samples = min_stats_samples
+        self.shadow_bn3 = shadow_bn3
+        self.conv1 = Conv(in_features, features, 1, dtype=dtype,
+                          generator=generator)
+        self.bn1 = norm(features)
+        self.conv2 = Conv(features, features, 3, stride, 1, dtype=dtype,
+                          generator=generator)
+        self.bn2 = norm(features)
+        self.conv3 = Conv(features, out, 1, dtype=dtype, generator=generator)
+        self.bn3 = norm(out)
+        if stride != 1 or in_features != out:
+            self.downsample_conv = Conv(in_features, out, 1, stride,
+                                        dtype=dtype, generator=generator)
+            self.downsample_bn = norm(out)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = stats_rows(x.shape[0], self.stats_fraction,
+                       self.min_stats_samples)
+        shadow = self.shadow_bn3 and self.training and k < x.shape[0]
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y3k = self.conv3(y[:k]) if shadow else None
+        y = self.conv3(y)
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_bn(
+                self.downsample_conv(x),
+                x_subset=self.downsample_conv(x[:k]) if shadow else None)
+        return F.relu(self.bn3(y, x_subset=y3k) + residual)
+
+
+class ResNetEncoder(nn.Module):
+    """ResNet trunk producing pooled ``width * 32``-d float32 features."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 width: int = 64, low_quality_img: bool = True,
+                 dtype: torch.dtype = torch.bfloat16,
+                 bn_dtype: torch.dtype = torch.bfloat16,
+                 bn_stats_fraction: float = 0.25,
+                 bn_grad_mode: str = "exact",
+                 bn_st_surrogate: str = "affine",
+                 bn3_shadow_stats: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.low_quality_img = low_quality_img
+
+        def norm(features):
+            return SubsetBatchNorm(
+                features, momentum=0.9, eps=1e-5, dtype=bn_dtype,
+                stats_fraction=bn_stats_fraction, grad_mode=bn_grad_mode,
+                st_surrogate=bn_st_surrogate)
+
+        if low_quality_img:
+            self.stem_conv = Conv(3, width, 3, 1, 1, dtype=dtype,
+                                  generator=generator)
+        else:
+            self.stem_conv = Conv(3, width, 7, 2, 3, dtype=dtype,
+                                  generator=generator)
+        self.stem_bn = norm(width)
+        self.block_names = []
+        in_features = width
+        for stage, n_blocks in enumerate(stage_sizes):
+            for block in range(n_blocks):
+                stride = 2 if stage > 0 and block == 0 else 1
+                features = width * 2 ** stage
+                name = f"layer{stage + 1}_{block}"
+                self.add_module(name, Bottleneck(
+                    in_features, features, stride, norm, dtype,
+                    bn_stats_fraction, shadow_bn3=bn3_shadow_stats,
+                    generator=generator))
+                self.block_names.append(name)
+                in_features = features * Bottleneck.expansion
+        self.out_features = in_features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.stem_bn(self.stem_conv(x.to(self.dtype))))
+        if not self.low_quality_img:
+            x = F.max_pool2d(x, 3, 2, 1)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return x.mean(dim=(2, 3)).to(torch.float32)

@@ -1,0 +1,143 @@
+"""SimCLR model: encoder f and projection head g; ``forward(x) -> (h, z)``.
+
+Counterpart of ``simclr_tpu/models/simclr.py``. The projection head is
+``num_proj_layers - 1`` blocks of Linear(bias) -> BN -> ReLU, then a
+bias-free Linear -> BN (reference: models/simclr.py:27-41).
+
+Only the default path of ``ModelConfig`` is ported. A flag that selects
+another path (the fused, folded or Pallas-kernel blocks, MC dropout, ...)
+raises ``NotImplementedError`` rather than quietly running the default.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from simclr_tpu_torch.config import ModelConfig
+from simclr_tpu_torch.models.norm import SubsetBatchNorm
+from simclr_tpu_torch.models.resnet import Linear, ResNetEncoder
+
+# ModelConfig fields of paths not ported yet, with the value that keeps
+# them off. None counts as off: init_simclr resolves it to False.
+_UNPORTED_OFF = {
+    "encoder": "no_dropout",
+    "bn_fused_vjp": False,
+    "fuse_identity_blocks": False,
+    "fold_bn_scales": False,
+    "bn_relu_fused": False,
+    "relu_barrier": False,
+    "bn12_shadow_stats": False,
+    "bn12_shadow_stages": (),
+    "conv_wgrad_fraction": 1.0,
+    "relu_from_output": False,
+    "winograd_conv2": False,
+    "conv64_pallas": False,
+    "remat_stages": (),
+}
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a ModelConfig path not ported yet."""
+    for field, off in _UNPORTED_OFF.items():
+        value = getattr(cfg, field)
+        if isinstance(off, tuple):
+            value = tuple(value)
+        if value is None or value == off:
+            continue
+        raise NotImplementedError(
+            f"ModelConfig.{field}={value!r} is ported in a later PR")
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+def _make_encoder(cfg: ModelConfig,
+                  generator: Optional[torch.Generator]) -> ResNetEncoder:
+    check_ported(cfg)
+    return ResNetEncoder(
+        stage_sizes=cfg.stage_sizes,
+        width=cfg.width,
+        low_quality_img=cfg.low_quality_img,
+        dtype=dtype_of(cfg.compute_dtype),
+        bn_dtype=dtype_of(cfg.bn_dtype),
+        bn_stats_fraction=cfg.bn_stats_fraction,
+        bn_grad_mode=cfg.bn_grad_mode,
+        bn_st_surrogate=cfg.bn_st_surrogate,
+        bn3_shadow_stats=cfg.bn3_shadow_stats,
+        generator=generator,
+    )
+
+
+class ProjectionHead(nn.Module):
+    """MLP g(.) (reference: models/simclr.py:27-41)."""
+
+    def __init__(self, in_features: int, feature_dim: int = 2048,
+                 output_dim: int = 128, num_layers: int = 2,
+                 dtype: torch.dtype = torch.bfloat16,
+                 bn_dtype: torch.dtype = torch.bfloat16,
+                 bn_stats_fraction: float = 0.25,
+                 bn_grad_mode: str = "exact",
+                 bn_st_surrogate: str = "affine",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.num_layers = num_layers
+
+        def norm(features):
+            return SubsetBatchNorm(
+                features, momentum=0.9, eps=1e-5, dtype=bn_dtype,
+                stats_fraction=bn_stats_fraction, grad_mode=bn_grad_mode,
+                st_surrogate=bn_st_surrogate)
+
+        width = in_features
+        for i in range(num_layers - 1):
+            self.add_module(f"linear{i}", Linear(
+                width, feature_dim, dtype=dtype, generator=generator))
+            self.add_module(f"bn{i}", norm(feature_dim))
+            width = feature_dim
+        last = num_layers - 1
+        self.add_module(f"linear{last}", Linear(
+            width, output_dim, bias=False, dtype=dtype, generator=generator))
+        self.add_module(f"bn{last}", norm(output_dim))
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        x = h.to(self.dtype)
+        for i in range(self.num_layers - 1):
+            x = getattr(self, f"linear{i}")(x)
+            x = F.relu(getattr(self, f"bn{i}")(x))
+        last = self.num_layers - 1
+        x = getattr(self, f"bn{last}")(getattr(self, f"linear{last}")(x))
+        return x.to(torch.float32)
+
+
+class SimCLR(nn.Module):
+    """Encoder + projection head; ``forward(x) -> (h, z)`` for NCHW images
+    (reference: models/simclr.py:43-46)."""
+
+    def __init__(self, cfg: ModelConfig = ModelConfig(),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.f = _make_encoder(cfg, generator)
+        self.g = ProjectionHead(
+            self.f.out_features,
+            feature_dim=cfg.feature_dim,
+            output_dim=cfg.compressed_dim,
+            num_layers=cfg.num_proj_layers,
+            dtype=dtype_of(cfg.compute_dtype),
+            bn_dtype=dtype_of(cfg.bn_dtype),
+            bn_stats_fraction=cfg.bn_stats_fraction,
+            bn_grad_mode=cfg.head_bn_grad_mode or cfg.bn_grad_mode,
+            bn_st_surrogate=cfg.bn_st_surrogate,
+            generator=generator,
+        )
+
+    def forward(self, x: torch.Tensor):
+        h = self.f(x)
+        return h, self.g(h)

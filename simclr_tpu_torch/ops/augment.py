@@ -1,0 +1,417 @@
+"""On-device SimCLR training augmentation (NHWC float32 images).
+
+Counterpart of the training path of ``simclr_tpu/ops/augment.py``: random
+resized crop and flip as two batched matmuls against tent-weight matrices,
+colour jitter in a per-image random order, random grayscale, normalisation
+and a per-image-sigma Gaussian blur.
+
+Every random step is split in two: a ``sample_*`` function draws the
+parameters from an explicit ``torch.Generator``, and an apply function takes
+them. Tests feed both packages the same parameters; PyTorch's and JAX's
+random streams differ, so only the distributions are compared.
+
+In ``augment_train`` the colour chain (jitter, grayscale, normalise) runs
+through kernel B2 (``ops/kernels/color.py``), before the blur. That order
+is exact: the blur's weights sum to one, so it commutes with the
+per-channel affine normalisation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from simclr_tpu_torch.config import AugmentConfig, DatasetConfig
+
+Boxes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _uniform(generator: torch.Generator, n: int, lo: float = 0.0,
+             hi: float = 1.0) -> torch.Tensor:
+    u = torch.rand(n, generator=generator, device=generator.device)
+    return lo + (hi - lo) * u
+
+
+# ---------------------------------------------------------------------------
+# Crop / resize / flip as batched interpolation matmuls.
+# ---------------------------------------------------------------------------
+
+def _interp_matrix(src_pos: torch.Tensor, in_size: int,
+                   support: torch.Tensor) -> torch.Tensor:
+    """Normalised tent-filter weights (N, OUT, IN) for source coordinates
+    (N, OUT), clamped to the image (edge replication, as PIL)."""
+    k = torch.arange(in_size, dtype=torch.float32, device=src_pos.device)
+    src_pos = src_pos.clamp(0.0, in_size - 1.0)
+    d = (src_pos[..., None] - k).abs() / support[..., None]
+    w = (1.0 - d).clamp_min(0.0)
+    return w / w.sum(dim=-1, keepdim=True).clamp_min(1e-8)
+
+
+def _apply_separable(images: torch.Tensor, wh: torch.Tensor,
+                     ww: torch.Tensor) -> torch.Tensor:
+    """Per-sample separable resample: (N,H,W,C) x (N,O_h,H) x (N,O_w,W),
+    returned contiguous NHWC (einsum may hand back a permuted view)."""
+    out = torch.einsum("nuh,nhwc->nuwc", wh, images)
+    return torch.einsum("nvw,nuwc->nuvc", ww, out).contiguous()
+
+
+def sample_crop_boxes(
+    generator: torch.Generator,
+    n: int,
+    in_h: int,
+    in_w: int,
+    scale: Tuple[float, float],
+    ratio: Tuple[float, float],
+) -> Boxes:
+    """Inception-style boxes (top, left, height, width): area fraction
+    ~ U(scale), aspect ~ exp(U(log ratio)), clamped to the image."""
+    area = in_h * in_w * _uniform(generator, n, scale[0], scale[1])
+    aspect = torch.exp(_uniform(generator, n, math.log(ratio[0]),
+                                math.log(ratio[1])))
+    w = torch.sqrt(area * aspect).clamp(1.0, float(in_w))
+    h = torch.sqrt(area / aspect).clamp(1.0, float(in_h))
+    top = _uniform(generator, n) * (in_h - h)
+    left = _uniform(generator, n) * (in_w - w)
+    return top, left, h, w
+
+
+def sample_flips(generator: torch.Generator, n: int,
+                 flip_prob: float) -> torch.Tensor:
+    return _uniform(generator, n) < flip_prob
+
+
+def crop_resize_flip(
+    images: torch.Tensor,
+    boxes: Boxes,
+    out_size: Tuple[int, int],
+    flip_mask: Optional[torch.Tensor] = None,
+    antialias: bool = True,
+) -> torch.Tensor:
+    """Crop per-sample boxes, resize to ``out_size``, optionally h-flip."""
+    n, in_h, in_w = images.shape[0], images.shape[1], images.shape[2]
+    out_h, out_w = out_size
+    top, left, h, w = boxes
+    dev = images.device
+    u = torch.arange(out_h, dtype=torch.float32, device=dev)
+    v = torch.arange(out_w, dtype=torch.float32, device=dev)
+    scale_h = (h / out_h)[:, None]
+    scale_w = (w / out_w)[:, None]
+    ys = top[:, None] + (u[None, :] + 0.5) * scale_h - 0.5
+    xs = left[:, None] + (v[None, :] + 0.5) * scale_w - 0.5
+    if flip_mask is not None:
+        xs_flipped = (left[:, None] + w[:, None] - 1.0) - (xs - left[:, None])
+        xs = torch.where(flip_mask[:, None], xs_flipped, xs)
+    one = torch.ones((n, 1), dtype=torch.float32, device=dev)
+    sup_h = scale_h.clamp_min(1.0) if antialias else one
+    sup_w = scale_w.clamp_min(1.0) if antialias else one
+    wh = _interp_matrix(ys, in_h, sup_h)
+    ww = _interp_matrix(xs, in_w, sup_w)
+    return _apply_separable(images, wh, ww)
+
+
+def random_resized_crop_flip(
+    generator: torch.Generator,
+    images: torch.Tensor,
+    out_size: Tuple[int, int],
+    scale: Tuple[float, float] = (0.08, 1.0),
+    ratio: Tuple[float, float] = (0.75, 4.0 / 3.0),
+    flip_prob: float = 0.5,
+    antialias: bool = True,
+) -> torch.Tensor:
+    """RandomResizedCrop + RandomHorizontalFlip (reference: data.py:121-123)."""
+    n, in_h, in_w = images.shape[0], images.shape[1], images.shape[2]
+    boxes = sample_crop_boxes(generator, n, in_h, in_w, scale, ratio)
+    flip = sample_flips(generator, n, flip_prob)
+    return crop_resize_flip(images, boxes, out_size, flip, antialias)
+
+
+# ---------------------------------------------------------------------------
+# Colour ops (float [0,1], clamped after each op). ``factor`` tensors are
+# per image, shape (N,).
+# ---------------------------------------------------------------------------
+
+_GRAY_WEIGHTS = (0.299, 0.587, 0.114)  # ITU-R 601-2, torchvision's L mode.
+
+
+def _gray(images: torch.Tensor) -> torch.Tensor:
+    r, g, b = images[..., 0], images[..., 1], images[..., 2]
+    return _GRAY_WEIGHTS[0] * r + _GRAY_WEIGHTS[1] * g + _GRAY_WEIGHTS[2] * b
+
+
+def rgb_to_grayscale(images: torch.Tensor,
+                     keep_channels: bool = True) -> torch.Tensor:
+    gray = _gray(images)[..., None]
+    return gray.expand(*gray.shape[:-1], 3) if keep_channels else gray
+
+
+def adjust_brightness(images: torch.Tensor,
+                      factor: torch.Tensor) -> torch.Tensor:
+    return (images * factor[:, None, None, None]).clamp(0.0, 1.0)
+
+
+def adjust_contrast(images: torch.Tensor,
+                    factor: torch.Tensor) -> torch.Tensor:
+    mean = _gray(images).mean(dim=(1, 2))[:, None, None, None]
+    f = factor[:, None, None, None]
+    return (f * images + (1.0 - f) * mean).clamp(0.0, 1.0)
+
+
+def adjust_saturation(images: torch.Tensor,
+                      factor: torch.Tensor) -> torch.Tensor:
+    f = factor[:, None, None, None]
+    return (f * images + (1.0 - f) * _gray(images)[..., None]).clamp(0.0, 1.0)
+
+
+def floor_mod(x: torch.Tensor, m: float) -> torch.Tensor:
+    """``x % m`` with the divisor's sign, computed as XLA computes
+    ``jnp.remainder``: the exact fmod, moved by m where the signs differ."""
+    r = torch.fmod(x, m)
+    return torch.where((r != 0) & ((r < 0) != (m < 0)), r + m, r)
+
+
+def rgb_to_hsv(images: torch.Tensor) -> torch.Tensor:
+    r, g, b = images[..., 0], images[..., 1], images[..., 2]
+    maxc = torch.maximum(torch.maximum(r, g), b)
+    minc = torch.minimum(torch.minimum(r, g), b)
+    delta = maxc - minc
+    safe_delta = torch.where(delta == 0, torch.ones_like(delta), delta)
+    s = torch.where(maxc == 0, torch.zeros_like(maxc),
+                    delta / torch.where(maxc == 0, torch.ones_like(maxc),
+                                        maxc))
+    rc = (maxc - r) / safe_delta
+    gc = (maxc - g) / safe_delta
+    bc = (maxc - b) / safe_delta
+    # Ties: maxc == r wins, then maxc == g.
+    h = torch.where(maxc == r, bc - gc,
+                    torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(delta == 0, torch.zeros_like(h), h)
+    h = floor_mod(h / 6.0, 1.0)
+    return torch.stack([h, s, maxc], dim=-1)
+
+
+def hsv_to_rgb(images: torch.Tensor) -> torch.Tensor:
+    """Branch-free: channel(n) = v - v*s*clip(min(k, 4-k), 0, 1) with
+    k = (n + 6h) mod 6."""
+    h, s, v = images[..., 0], images[..., 1], images[..., 2]
+    h6 = h * 6.0
+
+    def channel(n):
+        k = floor_mod(n + h6, 6.0)
+        return v - v * s * torch.minimum(k, 4.0 - k).clamp(0.0, 1.0)
+
+    return torch.stack([channel(5.0), channel(3.0), channel(1.0)], dim=-1)
+
+
+def adjust_hue(images: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    hsv = rgb_to_hsv(images)
+    h = floor_mod(hsv[..., 0] + delta[:, None, None], 1.0)
+    return hsv_to_rgb(torch.stack([h, hsv[..., 1], hsv[..., 2]], dim=-1))
+
+
+# The 24 permutations of (0..3), in itertools order: torchvision shuffles
+# the op order per ColorJitter call.
+_PERMS = np.array(list(itertools.permutations(range(4))), np.int32)
+
+
+def sample_color_params(
+    generator: torch.Generator,
+    n: int,
+    strength: float,
+    apply_prob: float,
+    gray_prob: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-image factors (N, 8) = [fb, fc, fs, fh, gray_flag, 0, 0, 0] and
+    op schedules (N, 4) int32, with the distributions of the JAX side's
+    ``sample_color_params``: with probability ``apply_prob`` the factors
+    are fb, fc, fs ~ U(max(0, 1 - 0.8s), 1 + 0.8s) and fh ~ U(-0.2s, 0.2s),
+    else the identity; gray_flag is 1 with probability ``gray_prob``."""
+    dev = generator.device
+
+    def uniform(lo, hi):
+        return _uniform(generator, n, lo, hi)
+
+    half = 0.8 * strength
+    hue = 0.2 * strength
+    applied = uniform(0.0, 1.0) < apply_prob
+    one = torch.ones(n, device=dev)
+    fb, fc, fs = (torch.where(applied, uniform(max(0.0, 1.0 - half),
+                                               1.0 + half), one)
+                  for _ in range(3))
+    fh = torch.where(applied, uniform(-hue, hue), torch.zeros(n, device=dev))
+    gray = (uniform(0.0, 1.0) < gray_prob).float()
+    pad = torch.zeros(n, device=dev)
+    factors = torch.stack([fb, fc, fs, fh, gray, pad, pad, pad], dim=1)
+    perm_idx = torch.randint(0, len(_PERMS), (n,), generator=generator,
+                             device=dev)
+    schedule = torch.as_tensor(_PERMS, device=dev)[perm_idx]
+    return factors, schedule
+
+
+def color_jitter(images: torch.Tensor, factors: torch.Tensor,
+                 schedule: torch.Tensor) -> torch.Tensor:
+    """ColorJitter with a per-image op order (reference: data.py:125-132).
+    ``factors`` (N, >=4) holds [fb, fc, fs, fh]; ``schedule`` (N, 4) the op
+    id (0 brightness, 1 contrast, 2 saturation, 3 hue) of each step. Both
+    come from ``sample_color_params``."""
+    fb, fc, fs, fh = (factors[:, i] for i in range(4))
+    x = images
+    for step in range(4):
+        candidates = torch.stack([
+            adjust_brightness(x, fb),
+            adjust_contrast(x, fc),
+            adjust_saturation(x, fs),
+            adjust_hue(x, fh),
+        ], dim=0)
+        op = schedule[:, step].long()
+        x = candidates[op, torch.arange(x.shape[0], device=x.device)]
+    return x
+
+
+def random_grayscale(images: torch.Tensor, flags: torch.Tensor
+                     ) -> torch.Tensor:
+    """RandomGrayscale (reference: data.py:133-135) for per-image bool
+    ``flags``."""
+    return torch.where(flags[:, None, None, None], rgb_to_grayscale(images),
+                       images)
+
+
+# ---------------------------------------------------------------------------
+# Gaussian blur with per-sample sigma.
+# ---------------------------------------------------------------------------
+
+def gaussian_kernel_size(img_size: int) -> int:
+    """floor(0.1 * img_size), snapped odd: 3 for CIFAR-10, 9 for STL-10."""
+    k = int(math.floor(0.1 * img_size))
+    if k % 2 == 0:
+        k = max(k - 1, 1)
+    return max(k, 1)
+
+
+def sample_blur_sigma(generator: torch.Generator, n: int,
+                      sigma_range: Tuple[float, float] = (0.1, 2.0)
+                      ) -> torch.Tensor:
+    return _uniform(generator, n, sigma_range[0], sigma_range[1])
+
+
+def _reflect_pad(images: torch.Tensor, half: int) -> torch.Tensor:
+    x = images.permute(0, 3, 1, 2)
+    return F.pad(x, (half, half, half, half), mode="reflect").permute(
+        0, 2, 3, 1)
+
+
+def gaussian_blur(images: torch.Tensor, sigma: torch.Tensor,
+                  kernel_size: int) -> torch.Tensor:
+    """Separable Gaussian blur of NHWC images with per-image ``sigma``:
+    reflect padding, weights exp(-x^2 / (2 sigma^2)) normalised, vertical
+    pass then horizontal pass (torchvision GaussianBlur semantics)."""
+    half = kernel_size // 2
+    offsets = torch.arange(-half, half + 1, dtype=torch.float32,
+                           device=images.device)
+    w = torch.exp(-(offsets[None, :] ** 2) / (2.0 * sigma[:, None] ** 2))
+    w = w / w.sum(dim=1, keepdim=True)
+    h, wdt = images.shape[1], images.shape[2]
+    x = _reflect_pad(images, half)
+    out = torch.zeros_like(images)
+    for i in range(kernel_size):
+        out = out + w[:, i, None, None, None] * x[:, i:i + h, half:half + wdt]
+    x = _reflect_pad(out, half)
+    out = torch.zeros_like(images)
+    for i in range(kernel_size):
+        out = out + w[:, i, None, None, None] * x[:, half:half + h, i:i + wdt]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Normalisation and the composed training view.
+# ---------------------------------------------------------------------------
+
+def normalize(images: torch.Tensor, mean: Sequence[float],
+              std: Sequence[float]) -> torch.Tensor:
+    m = torch.tensor(mean, dtype=torch.float32, device=images.device)
+    s = torch.tensor(std, dtype=torch.float32, device=images.device)
+    return (images - m) / s
+
+
+def to_float(images: torch.Tensor) -> torch.Tensor:
+    """uint8 [0,255] -> float32 [0,1], staying NHWC."""
+    if images.dtype == torch.uint8:
+        return images.to(torch.float32) / 255.0
+    return images.to(torch.float32)
+
+
+@dataclasses.dataclass
+class ViewParams:
+    """The random draws of one training view of N images."""
+
+    boxes: Boxes            # (top, left, height, width), each (N,)
+    flip: torch.Tensor      # (N,) bool
+    factors: torch.Tensor   # (N, 8) colour factors, see sample_color_params
+    schedule: torch.Tensor  # (N, 4) int32 colour-op order
+    sigma: torch.Tensor     # (N,) blur sigma
+
+    def to(self, device: "str | torch.device") -> "ViewParams":
+        return ViewParams(tuple(b.to(device) for b in self.boxes),
+                          self.flip.to(device), self.factors.to(device),
+                          self.schedule.to(device), self.sigma.to(device))
+
+
+def sample_view_params(generator: torch.Generator, n: int, in_h: int,
+                       in_w: int, aug: AugmentConfig) -> ViewParams:
+    boxes = sample_crop_boxes(generator, n, in_h, in_w, aug.crop_scale,
+                              aug.crop_ratio)
+    flip = sample_flips(generator, n, aug.flip_prob)
+    factors, schedule = sample_color_params(
+        generator, n, aug.color_distort_strength, aug.color_jitter_prob,
+        aug.color_drop_prob)
+    sigma = sample_blur_sigma(generator, n, aug.blur_sigma)
+    return ViewParams(boxes, flip, factors, schedule, sigma)
+
+
+def augment_train_apply(
+    images: torch.Tensor,
+    params: ViewParams,
+    ds: DatasetConfig,
+    out_size: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """One SimCLR training view of NHWC uint8 or float images with the
+    given draws: crop+flip -> colour kernel (jitter, grayscale, normalise)
+    -> blur. Returns (N, H, W, 3) float32."""
+    # Imported here: the kernel module imports this one for its plain
+    # version (as the JAX side imports its Pallas colour kernel).
+    from simclr_tpu_torch.ops.kernels.color import color_distort
+
+    out = out_size or (ds.img_size, ds.img_size)
+    x = crop_resize_flip(to_float(images), params.boxes, out, params.flip)
+    x = color_distort(x, params.factors, params.schedule, ds.mean, ds.std)
+    return gaussian_blur(x, params.sigma, gaussian_kernel_size(ds.img_size))
+
+
+def augment_train(
+    generator: torch.Generator,
+    images: torch.Tensor,
+    aug: AugmentConfig,
+    ds: DatasetConfig,
+    out_size: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """One SimCLR training view (reference: compose_augmentation_train,
+    data.py:100-147)."""
+    params = sample_view_params(generator, images.shape[0], images.shape[1],
+                                images.shape[2], aug)
+    return augment_train_apply(images, params, ds, out_size)
+
+
+def augment_train_pair(
+    generator: torch.Generator,
+    images: torch.Tensor,
+    aug: AugmentConfig,
+    ds: DatasetConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two independent views per image (reference: data.py:44-47)."""
+    return (augment_train(generator, images, aug, ds),
+            augment_train(generator, images, aug, ds))
