@@ -12,17 +12,27 @@ Phases, each printed as one line with its result and wall time:
    at 2N in {1024, 2048, 200}, D = 128, float32 (TF32 off on both sides).
 4. color: kernel B2 against its plain version at 512 CIFAR-sized images
    and 128 STL-sized ones.
-5. slice: full-width ResNet-50 SimCLR pretraining (default ``Config()``,
+5. bn_relu: kernels B3a-c (the single-pass subset-BN(+add)+ReLU
+   backwards) against their plain versions in bf16 and float32 at the
+   largest shapes of the bn_relu_fused path and at ragged small ones; the
+   autograd functions against autograd of the plain forward; a shape
+   ``supports()`` refuses must raise. B3c's one library counterpart,
+   aten's eval-mode BN backward, is checked and timed beside it.
+6. slice: full-width ResNet-50 SimCLR pretraining (default ``Config()``,
    batch 512 = 1,024 images a step) through ``init_simclr``,
    ``build_engine`` and ``train_epoch`` over a synthetic CIFAR-10-shaped
    dataset on the card. The launch counts are set to 0 just before and
-   read just after; every kernel must have launched and every loss must
-   be finite.
-6. profile: two more slice steps under torch.profiler; the device's busy
+   read just after; every kernel of the path must have launched and
+   every loss must be finite.
+7. profile: two more slice steps under torch.profiler; the device's busy
    share of the wall time and its time by kernel category and kernel.
-7. parity: a width-16 model takes two steps on the card (kernels) and on
-   the CPU (plain versions) from the same weights, batch and augmentation
-   draws, in float32; the losses must agree.
+8. bnrelu_slice, bnrelu_profile: phases 6 and 7 again with
+   ``ModelConfig(bn_relu_fused=True)``, whose block BNs run their
+   backward through B3: 32 B3a, 16 B3b and 4 B3c launches a step.
+9. parity: width-16 models, the default and the bn_relu_fused one, take
+   two steps on the card (kernels) and on the CPU (plain versions) from
+   the same weights, batch and augmentation draws, in float32; the losses
+   must agree.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -34,8 +44,10 @@ the repository. Writes nothing but the kernel build under
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -88,6 +100,23 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def median_ms(torch, fn, iters=25, warmup=3):
+    """Median device time of one fn() call over iters calls, each between
+    its own pair of CUDA events."""
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
 @phase("env")
 def env(torch):
     smi = subprocess.run(
@@ -106,13 +135,16 @@ def env(torch):
 
 @phase("build")
 def build():
-    from simclr_tpu_torch.ops.kernels import _build, color, ntxent
+    from simclr_tpu_torch.ops.kernels import _build, bn_relu, color, ntxent
     lib_path = _build.build()
     lib = _build.library()
     if lib.ntxent_max_dim() != ntxent.MAX_DIM:
         raise RuntimeError("ntxent MAX_DIM disagrees with the CUDA source")
     if lib.color_max_hw() != color.MAX_HW:
         raise RuntimeError("color MAX_HW disagrees with the CUDA source")
+    if (lib.bn_bwd_row_blocks(1, bn_relu.VEC) != 1
+            or lib.bn_bwd_row_blocks(1, bn_relu.VEC + 1) != -1):
+        raise RuntimeError("bn_relu VEC disagrees with the CUDA source")
     log = (lib_path.parent / "build.log").read_text().splitlines()
     usage = [line.split("info    :")[-1].strip() for line in log
              if "registers" in line]
@@ -243,23 +275,252 @@ def color_phase(torch):
                        + f"; at 512x32x32: {timing['ms']:.4f} ms"}
 
 
-def reset_counts(k_ntxent, k_color):
-    k_ntxent.ntxent_fwd.launches = 0
-    k_ntxent.ntxent_bwd.launches = 0
-    k_color.color_distort.launches = 0
+# B3 comparisons: (wrapper, mode, NCHW shape). The first five are the
+# largest shapes of the bn_relu_fused path at batch 512 (2N = 1,024); the
+# ragged ones exercise partial row blocks, C not a multiple of 256 and the
+# 2-D (N, C) view.
+_B3_CASES = (
+    ("relu", (1024, 64, 32, 32)), ("relu", (1024, 512, 4, 4)),
+    ("add_relu", (1024, 256, 32, 32)),
+    ("none", (1024, 256, 32, 32)), ("none", (1024, 2048, 4, 4)),
+    ("relu", (37, 72, 3, 5)), ("add_relu", (37, 72, 3, 5)),
+    ("none", (37, 72, 3, 5)), ("relu", (1000, 24)),
+)
+# The shape each kernel's times in the kernels line are taken at: its
+# largest on the path, in the path's bf16.
+_B3_TIMED = {"relu": (1024, 64, 32, 32), "add_relu": (1024, 256, 32, 32),
+             "none": (1024, 256, 32, 32)}
+# Tensors each pass reads or writes: g, out[, x], dx[, dskip].
+_B3_TENSORS = {"relu": 3, "add_relu": 5, "none": 3}
 
 
-@phase("slice")
-def slice_phase(torch, smi):
-    from simclr_tpu_torch.config import Config
+def _b3_inputs(torch, gen, shape, dtype):
+    cl = (torch.channels_last if len(shape) == 4
+          else torch.contiguous_format)
+    c = shape[1]
+
+    def t(scale=1.0, offset=0.0):
+        return (torch.randn(shape, device="cuda", generator=gen) * scale
+                + offset).to(dtype).contiguous(memory_format=cl)
+
+    def v(scale, offset):
+        return torch.randn(c, device="cuda", generator=gen) * scale + offset
+
+    return dict(g=t(), out=torch.relu(t()), x=t(1.5, 1.0),
+                a32=v(0.2, 1.0), mean=v(0.5, 1.0), rsig=v(0.1, 0.7).abs())
+
+
+def _b3_call(k, mode, i, plain=False):
+    """(outputs..., S1, S2) of one B3 pass, kernel or plain version."""
+    if mode == "relu":
+        fn = k.bwd_relu_plain if plain else k.bwd_relu
+        return fn(i["g"], i["out"], i["a32"])
+    if mode == "add_relu":
+        fn = k.bwd_add_relu_plain if plain else k.bwd_add_relu
+        return fn(i["g"], i["out"], i["x"], i["a32"], i["mean"], i["rsig"])
+    fn = k.bwd_norelu_plain if plain else k.bwd_norelu
+    return fn(i["g"], i["x"], i["a32"], i["mean"], i["rsig"])
+
+
+def _b3_abs_sums(torch, mode, i):
+    """Per-channel sums of |terms| of S1 and S2 (S2' in 'relu' mode): the
+    scale of their float32 summation error."""
+    red = (0,) + tuple(range(2, i["g"].dim()))
+    cs = (1, -1) + (1,) * (i["g"].dim() - 2)
+    g = i["g"].float()
+    gy = g if mode == "none" else g * (i["out"].float() > 0)
+    xh = (i["out"].float() if mode == "relu"
+          else (i["x"].float() - i["mean"].view(cs)) * i["rsig"].view(cs))
+    return gy.abs().sum(red), (gy * xh).abs().sum(red)
+
+
+def _b3_autograd_check(torch, k, gen):
+    """Each autograd function (kernel backward) against autograd of the
+    plain forward, float32, loss weighting out, mean and var: dx/dskip
+    within 2e-5 and dscale/dbias within 3e-4 (float32 sums in another
+    order; in 'relu' mode also the S2 recovery), relative and absolute."""
+    from simclr_tpu_torch.ops import subset_bn
+    shape, kk, eps = (256, 128, 8, 8), 32, 1e-5
+    worst = 0.0
+    for mode in ("relu", "add_relu", "none"):
+        i = _b3_inputs(torch, gen, shape, torch.float32)
+        c = shape[1]
+        w = [torch.randn(s, device="cuda", generator=gen)
+             for s in (shape, (c,), (c,))]
+        shift = torch.randn(c, device="cuda", generator=gen) + 1.0
+        grads = []
+        for fused in (True, False):
+            x, skip = (i["x"].clone().requires_grad_(),
+                       i["g"].clone().requires_grad_())
+            scale = (i["a32"].clone()).requires_grad_()
+            bias = (i["mean"] * 0.2).requires_grad_()
+            if fused:
+                if mode == "add_relu":
+                    o, m, v = k.subset_bn_add_relu(x, skip, scale, bias,
+                                                   shift, kk, eps,
+                                                   torch.float32)
+                else:
+                    op = (k.subset_bn_relu if mode == "relu"
+                          else k.subset_bn_only)
+                    o, m, v = op(x, scale, bias, shift, kk, eps,
+                                 torch.float32)
+            else:
+                m, v = subset_bn.bn_stats(x, shift, kk)
+                o = subset_bn.bn_apply(x, scale, bias, m, v, eps,
+                                       torch.float32)
+                if mode == "add_relu":
+                    o = torch.relu(o + skip)
+                elif mode == "relu":
+                    o = torch.relu(o)
+            ((o * w[0]).sum() + (m * w[1]).sum()
+             + (v * w[2]).sum()).backward()
+            grads.append([torch.zeros_like(t) if t.grad is None else t.grad
+                          for t in (x, skip, scale, bias)])
+        for a, b, tol in zip(grads[0], grads[1], (2e-5, 2e-5, 3e-4, 3e-4)):
+            if not bool(((a - b).abs() <= tol + tol * b.abs()).all()):
+                raise AssertionError(f"{mode}: autograd function disagrees "
+                                     f"by {(a - b).abs().max().item():.3e}")
+            worst = max(worst, (a - b).abs().max().item())
+    return worst
+
+
+def _b3c_library(torch, i, want, eps=1e-5):
+    """aten's eval-mode BN backward on B3c's inputs, the one library call
+    that computes B3c's function: from a given mean and variance it
+    returns dx = g * scale * invstd on every row, dweight = sum(g * xhat)
+    and dbias = sum(g), which are B3c's dx, S2 and S1 (the head rows'
+    correction stays outside in both). B3a (S2' read from the output) and
+    B3b (the mask and dskip) have none. Checked against the plain
+    version (dx within 2**-7 relative: three bf16 roundings against one;
+    sums within 2e-5 of sum|terms|, since invstd comes from a variance
+    made from rsig) and returned as the call to time; the port never
+    makes it."""
+    scale = i["a32"] / i["rsig"]
+    var = i["rsig"].reciprocal().square() - eps
+    empty = i["g"].new_empty(0, dtype=torch.float32)
+
+    def call():
+        return torch.ops.aten.native_batch_norm_backward(
+            i["g"], i["x"], scale, i["mean"], var, empty, empty, False, eps,
+            [True, True, True])
+
+    dx, dw, db = call()
+    scales = _b3_abs_sums(torch, "none", i)
+    ok = bool(((dx.float() - want[0].float()).abs()
+               <= 2.0 ** -7 * want[0].float().abs() + 1e-6).all())
+    for a, b, sc in zip((db, dw), want[1:], scales):
+        ok = ok and bool(((a - b).abs() <= 2e-5 * sc + 1e-6).all())
+    if not ok:
+        raise AssertionError("native_batch_norm_backward (eval) does not "
+                             "compute B3c's function")
+    return call
+
+
+@phase("bn_relu")
+def bn_relu_phase(torch):
+    from simclr_tpu_torch.ops.kernels import bn_relu as k
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    err = {m: 0.0 for m in _B3_TENSORS}
+    timing, notes = {}, []
+    for mode, shape in _B3_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            i = _b3_inputs(torch, gen, shape, dtype)
+            got = _b3_call(k, mode, i)
+            want = _b3_call(k, mode, i, plain=True)
+            n_t = len(got) - 2
+            # dx and dskip: the same roundings in the same order -> equal.
+            e_t = max((a - b).abs().max().item()
+                      for a, b in zip(got[:n_t], want[:n_t]))
+            if e_t != 0.0:
+                raise AssertionError(f"{mode} {shape} {dtype}: dx/dskip "
+                                     f"differ by {e_t}")
+            # S1, S2: float32 sums in another order; worst-case bound of
+            # either order within 2e-5 of the sum of |terms| (the kernel's
+            # longest chain of additions is ~130).
+            scales = _b3_abs_sums(torch, mode, i)
+            e_s = 0.0
+            for a, b, sc in zip(got[n_t:], want[n_t:], scales):
+                d = (a - b).abs()
+                if not bool((d <= 2e-5 * sc + 1e-6).all()):
+                    raise AssertionError(f"{mode} {shape} {dtype}: sums "
+                                         f"differ by {d.max().item()}")
+                e_s = max(e_s, d.max().item())
+            err[mode] = max(err[mode], e_t, e_s)
+            ms = median_ms(torch, lambda: _b3_call(k, mode, i))
+            plain_ms = median_ms(torch, lambda: _b3_call(k, mode, i, True))
+            n_bytes = (_B3_TENSORS[mode] * i["g"].numel()
+                       * i["g"].element_size()
+                       + (5 if mode != "relu" else 3) * shape[1] * 4)
+            bound, by = bound_ms(n_bytes, 8.0 * i["g"].numel(),
+                                 PEAK_F32_FLOPS)
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            notes.append(f"{mode} {list(shape)} {name}: {ms:.4f} ms "
+                         f"(plain {plain_ms:.4f}, bound {bound:.4f} {by}), "
+                         f"sum err {e_s:.2e}")
+            if dtype == torch.bfloat16 and shape == _B3_TIMED[mode]:
+                library_ms = None
+                if mode == "none":
+                    library_ms = median_ms(torch,
+                                           _b3c_library(torch, i, want))
+                    notes.append(f"{mode} {list(shape)} {name}: library "
+                                 f"(aten eval BN backward) {library_ms:.4f}"
+                                 " ms")
+                timing[mode] = dict(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound, bound_by=by,
+                                    library_ms=library_ms)
+            del i, got, want
+    for line in notes:
+        print(f"  {line}")
+    worst = _b3_autograd_check(torch, k, gen)
+    # A shape the kernel cannot read raises on the card.
+    refused = 0
+    for bad in (_b3_inputs(torch, gen, (8, 12, 2, 2), torch.float32),
+                _b3_inputs(torch, gen, (8, 16, 2, 2), torch.float16)):
+        try:
+            k.bwd_relu(bad["g"], bad["out"], bad["a32"])
+        except ValueError:
+            refused += 1
+    if refused != 2:
+        raise AssertionError("a shape supports() refuses did not raise")
+    for mode in timing:
+        timing[mode]["max_abs_err"] = err[mode]
+    return {"timing": timing,
+            "summary": "dx/dskip equal to the plain versions; S1/S2 within "
+                       "2e-5 of sum|terms|; autograd functions within "
+                       f"tolerance (worst {worst:.2e}); refused shapes "
+                       "raise; " + "; ".join(
+                           f"{m} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f})"
+                           for m, t in timing.items())}
+
+
+def _counters():
+    from simclr_tpu_torch.ops.kernels import bn_relu, color, ntxent
+    return {"ntxent_fwd": ntxent.ntxent_fwd, "ntxent_bwd": ntxent.ntxent_bwd,
+            "color": color.color_distort, "bn_bwd_relu": bn_relu.bwd_relu,
+            "bn_bwd_add_relu": bn_relu.bwd_add_relu,
+            "bn_bwd_norelu": bn_relu.bwd_norelu}
+
+
+def reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _run_slice(torch, smi, cfg, expected):
+    """Full-width ResNet-50 steps at batch 512; ``expected`` maps a
+    counter to the launches it must show a step (the others must be
+    above 0)."""
     from simclr_tpu_torch.data.datasets import synthetic_dataset
     from simclr_tpu_torch.data.pipeline import (
         DeviceDataset, epoch_permutation)
-    from simclr_tpu_torch.ops.kernels import color as k_color
-    from simclr_tpu_torch.ops.kernels import ntxent as k_ntxent
-    from simclr_tpu_torch.train.pretrain import build_engine, init_simclr
+    from simclr_tpu_torch.ops.augment import augment_train_apply
+    from simclr_tpu_torch.train.pretrain import (
+        _forward_pair, build_engine, init_simclr)
 
-    cfg = Config()
     steps, batch = 6, cfg.train.batch_size
     images, labels = synthetic_dataset(4096, img_size=32, seed=0)
     ds = DeviceDataset.from_numpy(images, labels, "cuda")
@@ -272,23 +533,37 @@ def slice_phase(torch, smi):
     state, _ = engine.train_epoch(state, ds.images, idx_mat[:1], gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(k_ntxent, k_color)
+    reset_counts()
     start = time.perf_counter()
     state, (losses, accs) = engine.train_epoch(state, ds.images,
                                                idx_mat[1:steps + 1], gen)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches = {"ntxent_fwd": k_ntxent.ntxent_fwd.launches,
-                "ntxent_bwd": k_ntxent.ntxent_bwd.launches,
-                "color": k_color.color_distort.launches}
+    launches = read_counts()
     losses, accs = losses.tolist(), accs.tolist()
     if not all(math.isfinite(v) for v in losses + accs):
         raise AssertionError(f"non-finite loss or accuracy: {losses}")
-    if not all(launches.values()):
+    if not all(launches[n] for n in ("ntxent_fwd", "ntxent_bwd", "color",
+                                     *expected)):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
+    for name, per_step in expected.items():
+        if launches[name] != per_step * steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{steps} steps, expected {per_step} a step")
     if state.step != steps + 1 or n_params != 23_500_352:
         raise AssertionError(f"step {state.step}, trunk params {n_params}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # What one more forward leaves allocated for the backward (the tensors
+    # autograd saved, and the two views), on an unused row of indices.
+    base = torch.cuda.memory_allocated()
+    pair = tuple(augment_train_apply(ds.images.index_select(
+        0, idx_mat[steps + 1]), p, cfg.dataset)
+        for p in engine.sample_pair_params(gen, batch,
+                                           *ds.images.shape[1:3]))
+    z = _forward_pair(model, *pair)
+    torch.cuda.synchronize()
+    kept_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    del pair, z
     return {"launches": launches, "engine": engine, "state": state,
             "images": ds.images, "idx": idx_mat[1:3], "gen": gen,
             "summary": f"ResNet-50 ({n_params} trunk params), batch {batch},"
@@ -296,12 +571,31 @@ def slice_phase(torch, smi):
                        f"{[round(v, 4) for v in losses]}, acc "
                        f"{[round(v, 2) for v in accs]}; "
                        f"{steps / seconds:.3f} steps/s, peak "
-                       f"{peak_gib:.2f} GiB on {smi}; launches {launches}"}
+                       f"{peak_gib:.2f} GiB ({kept_gib:.2f} GiB kept by a "
+                       f"forward for the backward) on {smi}; launches "
+                       f"{launches}"}
+
+
+@phase("slice")
+def slice_phase(torch, smi):
+    from simclr_tpu_torch.config import Config
+    return _run_slice(torch, smi, Config(), {})
+
+
+@phase("bnrelu_slice")
+def bnrelu_slice_phase(torch, smi):
+    from simclr_tpu_torch.config import Config, ModelConfig
+    cfg = Config(model=ModelConfig(bn_relu_fused=True, bn_relu_impl="pallas"))
+    # bn1 and bn2 of 16 blocks, bn3 of 16, the 4 downsample BNs.
+    return _run_slice(torch, smi, cfg, {"bn_bwd_relu": 32,
+                                        "bn_bwd_add_relu": 16,
+                                        "bn_bwd_norelu": 4})
 
 
 _CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("ntxent (B1)", ("ntxent",)),
     ("colour (B2)", ("color_kernel",)),
+    ("bn_relu (B3)", ("bn_bwd",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit",
                      "xmma", "cutlass", "nhwc", "nchw")),
     ("matmul", ("gemm", "matmul")),
@@ -312,8 +606,7 @@ _CATEGORIES = (  # first match wins, on the lower-cased kernel name
 )
 
 
-@phase("profile")
-def profile_phase(torch, run):
+def _profile(torch, run):
     """Two more slice steps under torch.profiler: device busy share of the
     wall time (the profiler's own overhead included) and device time by
     kernel category, by kernel, and by the PyTorch op (and its input
@@ -366,6 +659,24 @@ def profile_phase(torch, run):
                        f"category: {cat_text}"}
 
 
+@phase("profile")
+def profile_phase(torch, run):
+    return _profile(torch, run)
+
+
+@phase("bnrelu_profile")
+def bnrelu_profile_phase(torch, run):
+    return _profile(torch, run)
+
+
+def _release(torch, run):
+    """Drop a slice's model, optimizer and data before the next one, so
+    that its peak memory is its own."""
+    run.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 @phase("parity")
 def parity_phase(torch):
     from simclr_tpu_torch.config import Config, ModelConfig
@@ -373,34 +684,46 @@ def parity_phase(torch):
     from simclr_tpu_torch.ops.augment import sample_view_params
     from simclr_tpu_torch.train.pretrain import build_engine, init_simclr
 
-    cfg = Config(model=ModelConfig(
-        feature_dim=512, stage_sizes=(1, 1, 1, 1), width=16,
-        compute_dtype="float32", bn_dtype="float32"))
-    cfg = cfg.replace(train=dataclasses.replace(cfg.train, batch_size=40))
     images, _ = synthetic_dataset(40, img_size=32, seed=1)
-    gen = torch.Generator().manual_seed(2)
-    draws = [tuple(sample_view_params(gen, 40, 32, 32, cfg.augment)
-                   for _ in range(2)) for _ in range(2)]
-    result = {}
-    for dev in ("cuda", "cpu"):
-        model, state, opt = init_simclr(cfg, seed=0, device=dev)
-        engine = build_engine(cfg, model, opt)
-        batch = torch.from_numpy(images).to(dev)
-        losses = []
-        for params in draws:
-            pair = tuple(p.to(dev) for p in params)
-            state, (loss, _) = engine.train_step_on_params(state, batch,
-                                                           pair)
-            losses.append(loss.item())
-        result[dev] = losses
-    diff = max(abs(a - b) / abs(b) for a, b in zip(result["cuda"],
-                                                   result["cpu"]))
-    # float32 both sides (TF32 off); cuDNN and the CPU sum convolutions in
-    # another order, and the second step follows an Adam update.
-    if not diff < 1e-3:
-        raise AssertionError(f"card {result['cuda']} vs cpu {result['cpu']}")
-    return {"summary": f"losses card {result['cuda']} cpu {result['cpu']}, "
-                       f"max rel diff {diff:.2e} (tol 1e-3)"}
+    notes = []
+    for fused in (False, True):
+        cfg = Config(model=ModelConfig(
+            feature_dim=512, stage_sizes=(1, 1, 1, 1), width=16,
+            compute_dtype="float32", bn_dtype="float32",
+            bn_relu_fused=fused))
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                    batch_size=40))
+        gen = torch.Generator().manual_seed(2)
+        draws = [tuple(sample_view_params(gen, 40, 32, 32, cfg.augment)
+                       for _ in range(2)) for _ in range(2)]
+        result = {}
+        for dev in ("cuda", "cpu"):
+            model, state, opt = init_simclr(cfg, seed=0, device=dev)
+            engine = build_engine(cfg, model, opt)
+            batch = torch.from_numpy(images).to(dev)
+            losses = []
+            reset_counts()
+            for params in draws:
+                pair = tuple(p.to(dev) for p in params)
+                state, (loss, _) = engine.train_step_on_params(state, batch,
+                                                               pair)
+                losses.append(loss.item())
+            result[dev] = losses
+            if dev == "cuda" and fused and not all(read_counts().values()):
+                raise AssertionError(f"a B3 kernel did not run on the card: "
+                                     f"{read_counts()}")
+        diff = max(abs(a - b) / abs(b) for a, b in zip(result["cuda"],
+                                                       result["cpu"]))
+        # float32 both sides (TF32 off); cuDNN and the CPU sum
+        # convolutions in another order, and the second step follows an
+        # Adam update.
+        if not diff < 1e-3:
+            raise AssertionError(f"bn_relu_fused={fused}: card "
+                                 f"{result['cuda']} vs cpu {result['cpu']}")
+        notes.append(f"bn_relu_fused={fused}: losses card {result['cuda']} "
+                     f"cpu {result['cpu']}, max rel diff {diff:.2e} "
+                     f"(tol 1e-3)")
+    return {"summary": "; ".join(notes)}
 
 
 def main() -> int:
@@ -416,27 +739,46 @@ def main() -> int:
     build()
     nt = ntxent_phase(torch)
     col = color_phase(torch)
+    b3 = bn_relu_phase(torch)
     sl = slice_phase(torch, info["smi"])
     profile_phase(torch, sl)
+    default_launches = sl["launches"]
+    _release(torch, sl)
+    bsl = bnrelu_slice_phase(torch, info["smi"])
+    bnrelu_profile_phase(torch, bsl)
+    b3_launches = bsl["launches"]
+    _release(torch, bsl)
     parity_phase(torch)
 
     src = "simclr_tpu_torch/csrc/"
+    b3_src = "simclr_tpu/ops/pallas/bn_relu.py:"
     rows = [
         dict(name="ntxent_fwd", src=src + "ntxent.cu",
              replaces="simclr_tpu/ops/pallas/ntxent.py:114",
-             launches=sl["launches"]["ntxent_fwd"], **nt["fwd"]),
+             launches=default_launches["ntxent_fwd"], **nt["fwd"]),
         dict(name="ntxent_bwd", src=src + "ntxent.cu",
              replaces="simclr_tpu/ops/pallas/ntxent.py:137",
-             launches=sl["launches"]["ntxent_bwd"], **nt["bwd"]),
+             launches=default_launches["ntxent_bwd"], **nt["bwd"]),
         dict(name="color", src=src + "color.cu",
              replaces="simclr_tpu/ops/pallas/color.py:195",
-             launches=sl["launches"]["color"], **col["timing"]),
+             launches=default_launches["color"], **col["timing"]),
+        dict(name="bn_bwd_relu", src=src + "bn_relu.cu",
+             replaces=b3_src + "113", launches=b3_launches["bn_bwd_relu"],
+             **b3["timing"]["relu"]),
+        dict(name="bn_bwd_add_relu", src=src + "bn_relu.cu",
+             replaces=b3_src + "129",
+             launches=b3_launches["bn_bwd_add_relu"],
+             **b3["timing"]["add_relu"]),
+        dict(name="bn_bwd_norelu", src=src + "bn_relu.cu",
+             replaces=b3_src + "98", launches=b3_launches["bn_bwd_norelu"],
+             **b3["timing"]["none"]),
     ]
     kernels = [{"name": r["name"], "route": "cuda", "source": r["src"],
                 "replaces": r["replaces"], "launches": r["launches"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": None}
+                "bound_by": r["bound_by"],
+                "library_ms": r.get("library_ms")}
                for r in rows]
     print(json.dumps({"kernels": kernels}))
     print(info["smi"])

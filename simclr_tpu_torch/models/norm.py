@@ -1,10 +1,11 @@
 """Batch normalisation with subset statistics.
 
-Counterpart of ``SubsetBatchNorm`` in ``simclr_tpu/models/norm.py``: the
-batch statistics come from the leading k = min(max(int(n * fraction), 64),
-n) rows of the batch (shuffled upstream, so the subset is uniform), or
-from ``x_subset`` when the caller recomputes those rows itself. Inputs are
-(N, C) or (N, C, H, W); the channel axis is 1.
+Counterpart of ``SubsetBatchNorm`` and ``SubsetBNAct`` in
+``simclr_tpu/models/norm.py``: the batch statistics come from the leading
+k = min(max(int(n * fraction), 64), n) rows of the batch (shuffled
+upstream, so the subset is uniform), or from ``x_subset`` when the caller
+recomputes those rows itself. Inputs are (N, C) or (N, C, H, W); the
+channel axis is 1.
 
 Parameters and buffers are ``weight``, ``bias``, ``running_mean`` and
 ``running_var``. Running averages follow flax's ``momentum=0.9``
@@ -19,6 +20,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from simclr_tpu_torch.ops import subset_bn
+from simclr_tpu_torch.ops.kernels import bn_relu
+
 GRAD_MODES = ("exact", "subset_st")
 ST_SURROGATES = ("affine", "pad")
 
@@ -26,6 +30,17 @@ ST_SURROGATES = ("affine", "pad")
 def stats_rows(n: int, fraction: float, min_rows: int = 64) -> int:
     """Rows that feed the batch statistics of an n-row batch."""
     return min(max(int(n * fraction), min_rows), n)
+
+
+def _update_running(bn: nn.Module, mean: torch.Tensor, var: torch.Tensor,
+                    m: int) -> None:
+    """Flax-momentum running averages; the variance unbiased by m/(m-1)."""
+    with torch.no_grad():
+        unbiased = var * (m / max(m - 1, 1))
+        bn.running_mean.copy_(bn.momentum * bn.running_mean
+                              + (1.0 - bn.momentum) * mean)
+        bn.running_var.copy_(bn.momentum * bn.running_var
+                             + (1.0 - bn.momentum) * unbiased)
 
 
 class SubsetBatchNorm(nn.Module):
@@ -41,12 +56,17 @@ class SubsetBatchNorm(nn.Module):
     coefficients, 'pad' adds a k-row surrogate padded with zeros (always
     used when ``x_subset`` is given). Both give the same values and
     gradients.
+
+    ``fused_vjp=True`` takes precedence over ``grad_mode``: training runs
+    through ``ops.subset_bn.subset_bn_apply``, the same forward values with
+    the exact backward in closed form (statistics from x[:k] only).
     """
 
     def __init__(self, features: int, *, momentum: float = 0.9,
                  eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16,
                  stats_fraction: float = 0.25, min_stats_samples: int = 64,
-                 grad_mode: str = "exact", st_surrogate: str = "affine"):
+                 grad_mode: str = "exact", st_surrogate: str = "affine",
+                 fused_vjp: bool = False):
         super().__init__()
         if grad_mode not in GRAD_MODES:
             raise NotImplementedError(
@@ -60,6 +80,7 @@ class SubsetBatchNorm(nn.Module):
         self.min_stats_samples = min_stats_samples
         self.grad_mode = grad_mode
         self.st_surrogate = st_surrogate
+        self.fused_vjp = fused_vjp
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -70,45 +91,43 @@ class SubsetBatchNorm(nn.Module):
         the producing conv applied to the leading k input rows); the
         statistics and the straight-through surrogate read it instead of
         slicing x."""
-        cshape = (1, -1) + (1,) * (x.dim() - 2)
         dt = self.dtype
-        scale_dt = self.weight.to(dt).view(cshape)
-        bias_dt = self.bias.to(dt).view(cshape)
         if not self.training:
-            mean = self.running_mean.to(dt).view(cshape)
-            rsig = torch.rsqrt(self.running_var + self.eps).to(dt).view(
-                cshape)
-            return (x.to(dt) - mean) * (rsig * scale_dt) + bias_dt
+            return subset_bn.bn_apply(x, self.weight, self.bias,
+                                      self.running_mean, self.running_var,
+                                      self.eps, dt)
 
         n = x.shape[0]
+        if self.fused_vjp:
+            if x_subset is not None:
+                raise ValueError("fused_vjp takes its statistics from x[:k]; "
+                                 "x_subset is not supported")
+            k = stats_rows(n, self.stats_fraction, self.min_stats_samples)
+            y, mean, var = subset_bn.subset_bn_apply(
+                x, self.weight, self.bias, self.running_mean.clone(), k,
+                self.eps, dt)
+            _update_running(self, mean, var,
+                            subset_bn.elems_per_channel(x.shape, k))
+            return y
         if x_subset is not None:
-            k = x_subset.shape[0]
-            xs = x_subset.to(torch.float32)
+            k, xs = x_subset.shape[0], x_subset
         else:
             k = stats_rows(n, self.stats_fraction, self.min_stats_samples)
-            xs = x[:k].to(torch.float32)
-        red = (0,) + tuple(range(2, xs.dim()))
+            xs = x
         # One-pass variance around the running mean, a free shift that
         # keeps E[d^2] - E[d]^2 well conditioned in float32.
-        shift = self.running_mean.clone()
-        d = xs - shift.view(cshape)
-        mean_d = d.mean(dim=red)
-        mean2_d = d.square().mean(dim=red)
-        mean = mean_d + shift
-        var = (mean2_d - mean_d.square()).clamp_min(0.0)
-        with torch.no_grad():
-            m = xs.numel() // xs.shape[1]
-            unbiased = var * (m / max(m - 1, 1))
-            self.running_mean.copy_(self.momentum * self.running_mean
-                                    + (1.0 - self.momentum) * mean)
-            self.running_var.copy_(self.momentum * self.running_var
-                                   + (1.0 - self.momentum) * unbiased)
+        mean, var = subset_bn.bn_stats(xs, self.running_mean.clone(), k)
+        _update_running(self, mean, var,
+                        subset_bn.elems_per_channel(xs.shape, k))
+        if self.grad_mode == "exact":
+            return subset_bn.bn_apply(x, self.weight, self.bias, mean, var,
+                                      self.eps, dt)
 
+        cshape = (1, -1) + (1,) * (x.dim() - 2)
+        scale_dt = self.weight.to(dt).view(cshape)
+        bias_dt = self.bias.to(dt).view(cshape)
         mean_dt = mean.to(dt).view(cshape)
         rsig_dt = torch.rsqrt(var + self.eps).to(dt).view(cshape)
-        if self.grad_mode == "exact":
-            return (x.to(dt) - mean_dt) * (rsig_dt * scale_dt) + bias_dt
-
         sg = torch.Tensor.detach
         est = torch.tensor(n / k, dtype=dt, device=x.device)
         if self.st_surrogate == "affine" and x_subset is None:
@@ -124,3 +143,66 @@ class SubsetBatchNorm(nn.Module):
         sur = (xhat_k * (scale_dt - sg(scale_dt))
                + (bias_dt - sg(bias_dt))) * est
         return y + F.pad(sur, (0, 0) * (x.dim() - 1) + (0, n - k))
+
+
+class SubsetBNAct(nn.Module):
+    """Subset-statistics BN fused with the activation around it. ``mode``:
+    'relu' (bn1/bn2), 'add_relu' (bn3 plus the residual, given as
+    ``skip``), 'none' (the downsample BN). Same parameters and buffers as
+    ``SubsetBatchNorm``, so the two interchange weights.
+
+    Training values and running statistics are those of
+    ``SubsetBatchNorm(grad_mode='exact')`` followed by the add/ReLU; the
+    backward is the exact subset-statistics backward as one pass of kernel
+    B3 (``ops/kernels/bn_relu.py``), whatever the model's ``bn_grad_mode``.
+    ``impl`` 'xla' or 'xla_mask' selects the plain version of the one-pass
+    backward, an explicit choice and never a fallback. With 'pallas' CUDA
+    tensors go through the kernel or raise.
+    """
+
+    def __init__(self, features: int, *, mode: str = "relu",
+                 momentum: float = 0.9, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.bfloat16,
+                 stats_fraction: float = 0.25, min_stats_samples: int = 64,
+                 impl: str = "pallas"):
+        super().__init__()
+        if mode not in bn_relu.MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        if impl not in bn_relu.IMPLS:
+            raise ValueError(f"unknown bn_relu impl {impl!r}")
+        self.mode = mode
+        self.momentum = momentum
+        self.eps = eps
+        self.dtype = dtype
+        self.stats_fraction = stats_fraction
+        self.min_stats_samples = min_stats_samples
+        self.impl = impl
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def _act(self, y: torch.Tensor, skip) -> torch.Tensor:
+        if self.mode == "add_relu":
+            return F.relu(y + skip.to(y.dtype))
+        return F.relu(y) if self.mode == "relu" else y
+
+    def forward(self, x: torch.Tensor, skip=None) -> torch.Tensor:
+        if (skip is not None) != (self.mode == "add_relu"):
+            raise ValueError("skip is given exactly in mode 'add_relu'")
+        if not self.training:
+            return self._act(subset_bn.bn_apply(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, self.eps, self.dtype), skip)
+        k = stats_rows(x.shape[0], self.stats_fraction,
+                       self.min_stats_samples)
+        args = (x,) if skip is None else (x, skip)
+        op = {"relu": bn_relu.subset_bn_relu,
+              "add_relu": bn_relu.subset_bn_add_relu,
+              "none": bn_relu.subset_bn_only}[self.mode]
+        y, mean, var = op(*args, self.weight, self.bias,
+                          self.running_mean.clone(), k, self.eps, self.dtype,
+                          self.impl)
+        _update_running(self, mean, var,
+                        subset_bn.elems_per_channel(x.shape, k))
+        return y

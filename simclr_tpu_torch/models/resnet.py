@@ -1,9 +1,11 @@
 """ResNet encoder with subset-statistics BatchNorm.
 
-Counterpart of the default path of ``simclr_tpu/models/resnet.py``:
-``Bottleneck`` (1x1 -> 3x3(stride) -> 1x1, expansion 4, with
-``shadow_bn3``) and ``ResNetEncoder`` with the CIFAR stem (3x3 stride 1, no
-max-pool) or the STL stem (7x7 stride 2, 3x3 stride-2 max-pool).
+Counterpart of ``simclr_tpu/models/resnet.py``'s default path and its
+``bn_relu_fused`` and ``bn_fused_vjp`` paths: ``Bottleneck`` (1x1 ->
+3x3(stride) -> 1x1, expansion 4, with ``shadow_bn3`` or with the block's
+BNs as ``SubsetBNAct``) and ``ResNetEncoder`` with the CIFAR stem (3x3
+stride 1, no max-pool) or the STL stem (7x7 stride 2, 3x3 stride-2
+max-pool).
 
 Inputs are NCHW, normally in ``torch.channels_last`` memory (physically
 NHWC, as on the JAX side). Parameters are float32; convolutions run in
@@ -22,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from simclr_tpu_torch.models.norm import SubsetBatchNorm, stats_rows
+from simclr_tpu_torch.models.norm import (
+    SubsetBatchNorm, SubsetBNAct, stats_rows)
 
 # Truncated normal on [-2, 2] standard deviations has this std; flax's
 # variance_scaling divides by it so the kept draws have the asked variance.
@@ -76,6 +79,7 @@ class Linear(nn.Linear):
 
 
 NormFactory = Callable[[int], SubsetBatchNorm]
+BNActFactory = Callable[[int, str], SubsetBNAct]
 
 
 class Bottleneck(nn.Module):
@@ -86,7 +90,11 @@ class Bottleneck(nn.Module):
     ``shadow_bn3``: in training, bn3 and downsample_bn take their
     statistics from a second, parameter-shared conv call on the leading k
     input rows. The values are those of slicing the conv output; the
-    gradients reach the same totals through the shadow call."""
+    gradients reach the same totals through the shadow call.
+
+    ``bnact``: when given, it makes bn1 and bn2 (mode 'relu'),
+    downsample_bn ('none') and bn3 with the residual ('add_relu'), and
+    shadow statistics are off."""
 
     expansion = 4
 
@@ -94,28 +102,40 @@ class Bottleneck(nn.Module):
                  norm: NormFactory, dtype: torch.dtype,
                  stats_fraction: float, shadow_bn3: bool = False,
                  min_stats_samples: int = 64,
+                 bnact: Optional[BNActFactory] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         out = features * self.expansion
         self.stats_fraction = stats_fraction
         self.min_stats_samples = min_stats_samples
-        self.shadow_bn3 = shadow_bn3
+        self.fused_bn = bnact is not None
+        self.shadow_bn3 = shadow_bn3 and not self.fused_bn
+
+        def bn(f, mode):
+            return norm(f) if bnact is None else bnact(f, mode)
+
         self.conv1 = Conv(in_features, features, 1, dtype=dtype,
                           generator=generator)
-        self.bn1 = norm(features)
+        self.bn1 = bn(features, "relu")
         self.conv2 = Conv(features, features, 3, stride, 1, dtype=dtype,
                           generator=generator)
-        self.bn2 = norm(features)
+        self.bn2 = bn(features, "relu")
         self.conv3 = Conv(features, out, 1, dtype=dtype, generator=generator)
-        self.bn3 = norm(out)
+        self.bn3 = bn(out, "add_relu")
         if stride != 1 or in_features != out:
             self.downsample_conv = Conv(in_features, out, 1, stride,
                                         dtype=dtype, generator=generator)
-            self.downsample_bn = norm(out)
+            self.downsample_bn = bn(out, "none")
         else:
             self.downsample_conv = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_bn:
+            y = self.bn2(self.conv2(self.bn1(self.conv1(x))))
+            residual = x
+            if self.downsample_conv is not None:
+                residual = self.downsample_bn(self.downsample_conv(x))
+            return self.bn3(self.conv3(y), residual)
         k = stats_rows(x.shape[0], self.stats_fraction,
                        self.min_stats_samples)
         shadow = self.shadow_bn3 and self.training and k < x.shape[0]
@@ -142,6 +162,9 @@ class ResNetEncoder(nn.Module):
                  bn_grad_mode: str = "exact",
                  bn_st_surrogate: str = "affine",
                  bn3_shadow_stats: bool = False,
+                 bn_fused_vjp: bool = False,
+                 bn_relu_fused: bool = False,
+                 bn_relu_impl: str = "pallas",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
@@ -151,7 +174,15 @@ class ResNetEncoder(nn.Module):
             return SubsetBatchNorm(
                 features, momentum=0.9, eps=1e-5, dtype=bn_dtype,
                 stats_fraction=bn_stats_fraction, grad_mode=bn_grad_mode,
-                st_surrogate=bn_st_surrogate)
+                st_surrogate=bn_st_surrogate, fused_vjp=bn_fused_vjp)
+
+        bnact = None
+        if bn_relu_fused:
+            def bnact(features, mode):
+                return SubsetBNAct(
+                    features, mode=mode, momentum=0.9, eps=1e-5,
+                    dtype=bn_dtype, stats_fraction=bn_stats_fraction,
+                    impl=bn_relu_impl)
 
         if low_quality_img:
             self.stem_conv = Conv(3, width, 3, 1, 1, dtype=dtype,
@@ -169,8 +200,9 @@ class ResNetEncoder(nn.Module):
                 name = f"layer{stage + 1}_{block}"
                 self.add_module(name, Bottleneck(
                     in_features, features, stride, norm, dtype,
-                    bn_stats_fraction, shadow_bn3=bn3_shadow_stats,
-                    generator=generator))
+                    bn_stats_fraction,
+                    shadow_bn3=bn3_shadow_stats and not bn_fused_vjp,
+                    bnact=bnact, generator=generator))
                 self.block_names.append(name)
                 in_features = features * Bottleneck.expansion
         self.out_features = in_features

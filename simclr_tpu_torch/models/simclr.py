@@ -4,8 +4,10 @@ Counterpart of ``simclr_tpu/models/simclr.py``. The projection head is
 ``num_proj_layers - 1`` blocks of Linear(bias) -> BN -> ReLU, then a
 bias-free Linear -> BN (reference: models/simclr.py:27-41).
 
-Only the default path of ``ModelConfig`` is ported. A flag that selects
-another path (the fused, folded or Pallas-kernel blocks, MC dropout, ...)
+The default path of ``ModelConfig`` is ported, and with it
+``bn_relu_fused`` (the block BNs as ``SubsetBNAct``, backward through
+kernel B3) and ``bn_fused_vjp``. A flag that selects another path (the
+fused or folded blocks, the other Pallas-kernel paths, MC dropout, ...)
 raises ``NotImplementedError`` rather than quietly running the default.
 """
 
@@ -25,10 +27,8 @@ from simclr_tpu_torch.models.resnet import Linear, ResNetEncoder
 # them off. None counts as off: init_simclr resolves it to False.
 _UNPORTED_OFF = {
     "encoder": "no_dropout",
-    "bn_fused_vjp": False,
     "fuse_identity_blocks": False,
     "fold_bn_scales": False,
-    "bn_relu_fused": False,
     "relu_barrier": False,
     "bn12_shadow_stats": False,
     "bn12_shadow_stages": (),
@@ -70,6 +70,9 @@ def _make_encoder(cfg: ModelConfig,
         bn_grad_mode=cfg.bn_grad_mode,
         bn_st_surrogate=cfg.bn_st_surrogate,
         bn3_shadow_stats=cfg.bn3_shadow_stats,
+        bn_fused_vjp=bool(cfg.bn_fused_vjp),
+        bn_relu_fused=bool(cfg.bn_relu_fused),
+        bn_relu_impl=cfg.bn_relu_impl,
         generator=generator,
     )
 
@@ -84,6 +87,7 @@ class ProjectionHead(nn.Module):
                  bn_stats_fraction: float = 0.25,
                  bn_grad_mode: str = "exact",
                  bn_st_surrogate: str = "affine",
+                 bn_fused_vjp: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
@@ -93,7 +97,7 @@ class ProjectionHead(nn.Module):
             return SubsetBatchNorm(
                 features, momentum=0.9, eps=1e-5, dtype=bn_dtype,
                 stats_fraction=bn_stats_fraction, grad_mode=bn_grad_mode,
-                st_surrogate=bn_st_surrogate)
+                st_surrogate=bn_st_surrogate, fused_vjp=bn_fused_vjp)
 
         width = in_features
         for i in range(num_layers - 1):
@@ -135,6 +139,7 @@ class SimCLR(nn.Module):
             bn_stats_fraction=cfg.bn_stats_fraction,
             bn_grad_mode=cfg.head_bn_grad_mode or cfg.bn_grad_mode,
             bn_st_surrogate=cfg.bn_st_surrogate,
+            bn_fused_vjp=bool(cfg.bn_fused_vjp),
             generator=generator,
         )
 

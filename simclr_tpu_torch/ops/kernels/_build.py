@@ -35,6 +35,10 @@ SIGNATURES = {
     "ntxent_bwd": (_P, _P, _P, _P, _I, _I, _F, _P),
     "color_max_hw": (),
     "color_distort": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P),
+    "bn_bwd_row_blocks": (_I, _I),
+    "bn_bwd_relu": (_P,) * 6 + (_I, _I, _I, _P),
+    "bn_bwd_add_relu": (_P,) * 10 + (_I, _I, _I, _P),
+    "bn_bwd_norelu": (_P,) * 8 + (_I, _I, _I, _P),
 }
 
 

@@ -1,0 +1,45 @@
+"""The port never imports JAX or the JAX package: every module of
+``simclr_tpu_torch`` imports in a fresh interpreter in which ``jax``,
+``flax``, ``optax`` and ``simclr_tpu`` cannot be imported."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import simclr_tpu_torch
+
+BLOCKED = ("jax", "flax", "optax", "simclr_tpu")
+
+_SCRIPT = """
+import importlib, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+for name in {modules!r}:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in {blocked!r} and sys.modules[m])
+assert not leaked, leaked
+print(len({modules!r}))
+"""
+
+
+def _modules():
+    pkg = simclr_tpu_torch
+    names = [pkg.__name__]
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        names.append(info.name)
+    return names
+
+
+def test_every_port_module_imports_without_jax():
+    modules = _modules()
+    assert "simclr_tpu_torch.ops.kernels.bn_relu" in modules
+    assert "simclr_tpu_torch.ops.subset_bn" in modules
+    root = Path(simclr_tpu_torch.__file__).resolve().parents[1]
+    result = subprocess.run(
+        [sys.executable, "-c", _SCRIPT.format(blocked=BLOCKED,
+                                              modules=modules)],
+        cwd=root, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.split()[-1] == str(len(modules))

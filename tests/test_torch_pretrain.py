@@ -51,22 +51,23 @@ def _flat(tree, prefix=()):
             yield "/".join(prefix + (k,)), np.asarray(v)
 
 
-def _configs(**model):
+def _configs(jax_over=None, **model):
     kw = dict(SMALL, **model)
     train = dict(batch_size=BATCH, temperature=0.5)
     return (
         tcfg.Config(model=tcfg.ModelConfig(**kw),
                     train=tcfg.TrainConfig(**train)),
-        jcfg.Config(model=jcfg.ModelConfig(**kw),
+        jcfg.Config(model=jcfg.ModelConfig(**kw, **(jax_over or {})),
                     train=jcfg.TrainConfig(**train)),
     )
 
 
-def _run_both(steps, **model):
+def _run_both(steps, jax_over=None, **model):
     """``steps`` steps on both sides from the same weights, batch and
-    draws. Returns per-step metrics and running statistics, and the
-    parameters before and after."""
-    tc, jc = _configs(**model)
+    draws; ``jax_over`` overrides ModelConfig fields on the JAX side only.
+    Returns per-step metrics and running statistics, and the parameters
+    before and after."""
+    tc, jc = _configs(jax_over, **model)
     tmodel, tstate, topt = init_simclr(tc, seed=0, device="cpu")
     engine = build_engine(tc, tmodel, topt)
     params, stats = simclr_to_jax(tmodel.state_dict())
