@@ -29,10 +29,22 @@ Phases, each printed as one line with its result and wall time:
 8. bnrelu_slice, bnrelu_profile: phases 6 and 7 again with
    ``ModelConfig(bn_relu_fused=True)``, whose block BNs run their
    backward through B3: 32 B3a, 16 B3b and 4 B3c launches a step.
-9. parity: width-16 models, the default and the bn_relu_fused one, take
-   two steps on the card (kernels) and on the CPU (plain versions) from
-   the same weights, batch and augmentation draws, in float32; the losses
-   must agree.
+9. conv: kernels B4f/B4w (layer1's C = 64 conv: forward, input and
+   weight gradient) and B5f/B5w (Winograd F(2x2,3x3): forward/input
+   gradient and dU) against their plain versions at the path's shapes
+   and at a ragged one each; the autograd functions against autograd of
+   their plain forwards; refused operands must raise. Each kernel is
+   timed beside its plain version and the cuDNN call that computes the
+   same function (``F.conv2d`` or ``aten.convolution_backward``).
+10. conv_slice, conv_profile: phases 6 and 7 with
+   ``ModelConfig(conv64_pallas=True, winograd_conv2=True)``: layer1's
+   three conv2 through B4 (6 B4f, 3 B4w launches a step), the ten other
+   stride-1 conv2 through B5 (20 B5f, 10 B5w).
+11. parity: width-16 models, the default and the bn_relu_fused one in
+   float32 and one with ``conv64_pallas`` and ``winograd_conv2`` in bf16,
+   take two steps on the card (kernels) and on the CPU (plain versions)
+   from the same weights, batch and augmentation draws; the losses must
+   agree.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -47,6 +59,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -56,6 +69,7 @@ TIME_BUDGET_S = 600.0
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12       # float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # bf16 on the tensor cores
 T0 = time.perf_counter()
 
 
@@ -135,7 +149,8 @@ def env(torch):
 
 @phase("build")
 def build():
-    from simclr_tpu_torch.ops.kernels import _build, bn_relu, color, ntxent
+    from simclr_tpu_torch.ops.kernels import (
+        _build, bn_relu, color, ntxent, winograd)
     lib_path = _build.build()
     lib = _build.library()
     if lib.ntxent_max_dim() != ntxent.MAX_DIM:
@@ -145,12 +160,34 @@ def build():
     if (lib.bn_bwd_row_blocks(1, bn_relu.VEC) != 1
             or lib.bn_bwd_row_blocks(1, bn_relu.VEC + 1) != -1):
         raise RuntimeError("bn_relu VEC disagrees with the CUDA source")
-    log = (lib_path.parent / "build.log").read_text().splitlines()
-    usage = [line.split("info    :")[-1].strip() for line in log
-             if "registers" in line]
-    for line in usage:
-        print(f"  ptxas: {line}")
+    if (lib.winograd_dw_ranges(1, 2, 2, winograd.BLOCK, winograd.BLOCK) != 1
+            or lib.winograd_dw_ranges(1, 2, 2, winograd.BLOCK // 2,
+                                      winograd.BLOCK) != -1):
+        raise RuntimeError("winograd BLOCK disagrees with the CUDA source")
+    log = (lib_path.parent / "build.log").read_text()
+    for name, frame, usage in _ptxas_usage(log):
+        print(f"  ptxas: {name}: {usage}; {frame}")
     return {"summary": f"{lib_path.relative_to(lib_path.parents[2])}"}
+
+
+def _ptxas_usage(log):
+    """(kernel, stack/spill line, register/shared-memory line) for each
+    kernel in nvcc's -Xptxas=-v output; the name is the last component of
+    the mangled one (``_Z[N]<length><name>...``, the first component
+    being the anonymous namespace where there is one)."""
+    out = []
+    for block in log.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        name, rest = mangled, mangled[2 + mangled.startswith("_ZN"):]
+        while (m := re.match(r"\d+", rest)):
+            end = m.end() + int(m.group())
+            name, rest = rest[m.end():end], rest[end:]
+        lines = [line.split("info    :")[-1].strip()
+                 for line in block.splitlines()]
+        frame = next((x for x in lines if "spill" in x), "")
+        usage = next((x for x in lines if "registers" in x), "")
+        out.append((name, frame, usage))
+    return out
 
 
 def _correct_mismatch_ok(torch, z, inv_t, got, want):
@@ -493,12 +530,258 @@ def bn_relu_phase(torch):
                            for m, t in timing.items())}
 
 
+# B4 comparisons: (N, H, W) at C = 64. The first is layer1 at batch 512
+# (2N = 1,024 images); the ragged one has a partial last tile and H != W.
+_B4_SHAPES = ((1024, 32, 32), (3, 5, 7))
+# B5 comparisons: (N, C, K, H, W). The first three are the path's
+# stride-1 conv2 of layer2, layer3 and layer4; the ragged one has an odd
+# batch, C != K, H != W and a partial last block of tiles.
+_B5_SHAPES = ((1024, 128, 128, 16, 16), (1024, 256, 256, 8, 8),
+              (1024, 512, 512, 4, 4), (3, 96, 160, 6, 10))
+# Tolerance of a bf16 output made by one rounding of float32 sums taken in
+# another order: one bf16 ulp of the element (2**-7 relative), plus
+# 1e-5 of the largest output for elements near 0.
+_ULP = 2.0 ** -7
+
+
+def _within_ulp(torch, got, want, what):
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if not bool((err <= _ULP * want.abs()
+                 + 1e-5 * want.abs().max()).all()):
+        raise AssertionError(f"{what}: differs by {err.max().item()}")
+    return err.max().item()
+
+
+def _within_sums(torch, got, want, scale, what):
+    """float32 sums in another order: within 2e-5 of the sum of |terms|,
+    as the B3 sums."""
+    err = (got - want).abs()
+    if not bool((err <= 2e-5 * scale + 1e-6).all()):
+        raise AssertionError(f"{what}: sums differ by {err.max().item()}")
+    return err.max().item()
+
+
+def _rel_norm(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _conv_inputs(torch, gen, n, c, k, h, w):
+    """bf16 x (N, C, H, W) and cotangent g (N, K, H, W) in channels_last,
+    and a float32 (K, C, 3, 3) filter at the model's init scale."""
+    cl = torch.channels_last
+    x = torch.randn(n, c, h, w, device="cuda", generator=gen).to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    wt = torch.randn(k, c, 3, 3, device="cuda", generator=gen) \
+        * (2.0 / (9 * k)) ** 0.5
+    g = torch.randn(n, k, h, w, device="cuda", generator=gen).to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    return x, wt, g
+
+
+def _conv_bwd_library(torch, g, x, w16, mask):
+    """aten's convolution backward (cuDNN) for dx or dW alone."""
+    return lambda: torch.ops.aten.convolution_backward(
+        g, x, w16, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, mask)
+
+
+def _conv_timing(torch, kernel, plain, library, n_bytes, flops):
+    t = dict(ms=median_ms(torch, kernel), plain_ms=median_ms(torch, plain),
+             library_ms=median_ms(torch, library))
+    t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
+    return t
+
+
+def _autograd_grads(torch, fn, x, w, r):
+    """(y, dx, dw) of sum(fn(x, w) * r) by autograd."""
+    xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = fn(xx, ww)
+    (y.float() * r).sum().backward()
+    return y.detach(), xx.grad, ww.grad
+
+
+def _b4(torch, F, k, gen, notes):
+    err, timing = {"fwd": 0.0, "wgrad": 0.0}, {}
+    for n, h, w in _B4_SHAPES:
+        x, wt, g = _conv_inputs(torch, gen, n, 64, 64, h, w)
+        where = f"{n}x64x{h}x{w}"
+        for what, a, b in (("y", x, wt), ("dx", g, k.rot180_swap(wt))):
+            err["fwd"] = max(err["fwd"], _within_ulp(
+                torch, k.conv_c64(a, b), k.conv3x3_c64_plain(a, b),
+                f"B4f {what} {where}"))
+        scale = k.wgrad_c64_plain(x.abs(), g.abs())   # sum of |terms|
+        err["wgrad"] = max(err["wgrad"], _within_sums(
+            torch, k.wgrad_c64(x, g), k.wgrad_c64_plain(x, g), scale,
+            f"B4w {where}"))
+        if (n, h, w) != _B4_SHAPES[0]:
+            continue
+        w16, rot = wt.to(torch.bfloat16), k.rot180_swap(wt)
+        px = n * h * w
+        io_bytes, flops = 2 * px * 64 * 2, 2.0 * px * 64 * 576
+        timing["fwd"] = _conv_timing(
+            torch, lambda: k.conv_c64(x, wt),
+            lambda: k.conv3x3_c64_plain(x, wt),
+            lambda: F.conv2d(x, w16, padding=1), io_bytes + 9 * 64 * 64 * 2,
+            flops)
+        timing["wgrad"] = _conv_timing(
+            torch, lambda: k.wgrad_c64(x, g),
+            lambda: k.wgrad_c64_plain(x, g),
+            _conv_bwd_library(torch, g, x, w16, [False, True, False]),
+            io_bytes + 64 * 576 * 4, flops)
+        dx_ms = median_ms(torch, lambda: k.conv_c64(g, rot))
+        dx_lib = median_ms(torch, _conv_bwd_library(
+            torch, g, x, w16, [True, False, False]))
+        notes.append(f"B4 at {where}: fwd {timing['fwd']['ms']:.4f} ms "
+                     f"(library {timing['fwd']['library_ms']:.4f}), dx "
+                     f"{dx_ms:.4f} (library {dx_lib:.4f}), wgrad "
+                     f"{timing['wgrad']['ms']:.4f} (library "
+                     f"{timing['wgrad']['library_ms']:.4f})")
+        del x, g
+    # The autograd function against autograd of the plain forward: y, dx
+    # within one bf16 ulp; dW within one ulp too (the plain path rounds
+    # dW to bf16 at the weight's cast, the kernel path keeps it float32).
+    x, wt, g = _conv_inputs(torch, gen, 64, 64, 64, 16, 16)
+    got = _autograd_grads(torch, k.conv3x3_c64, x, wt, g.float())
+    want = _autograd_grads(torch, k.conv3x3_c64_plain, x, wt, g.float())
+    worst = max(_within_ulp(torch, a, b, f"B4 autograd {name}")
+                / b.float().abs().max().item()
+                for a, b, name in zip(got, want, ("y", "dx", "dw")))
+    notes.append(f"B4 autograd function within one bf16 ulp (largest "
+                 f"difference {worst:.2e} of the largest entry)")
+    return err, timing
+
+
+def _b5w_abs_sums(torch, k, x, g):
+    """Per-element sums of |terms| of dU = V^T dM (bf16 V and dM)."""
+    c, kk = x.shape[1], g.shape[1]
+    v = k._bf16_rounded(k._input_transform(k._nhwc32(x))).reshape(16, -1, c)
+    dm = k._bf16_rounded(k._dm_transform(k._nhwc32(g))).reshape(16, -1, kk)
+    return torch.matmul(v.abs().transpose(1, 2), dm.abs())
+
+
+def _b5(torch, F, k, rot180_swap, gen, notes):
+    err, timing = {"fwd": 0.0, "dw": 0.0}, {}
+    for n, c, kk, h, w in _B5_SHAPES:
+        x, wt, g = _conv_inputs(torch, gen, n, c, kk, h, w)
+        w16 = wt.to(torch.bfloat16)
+        u = k.transform_filter(w16).to(torch.bfloat16)
+        u_rot = k.transform_filter(rot180_swap(w16)).to(torch.bfloat16)
+        where = f"{n}x{c}x{h}x{w}->{kk}"
+        for what, a, uu in (("y", x, u), ("dx", g, u_rot)):
+            err["fwd"] = max(err["fwd"], _within_ulp(
+                torch, k.winograd_fwd(a, uu), k.winograd_fwd_plain(a, uu),
+                f"B5f {what} {where}"))
+        err["dw"] = max(err["dw"], _within_sums(
+            torch, k.winograd_dw(x, g), k.winograd_dw_plain(x, g),
+            _b5w_abs_sums(torch, k, x, g), f"B5w {where}"))
+        if n != 1024:
+            continue
+        px, tiles = n * h * w, n * h * w // 4
+        io_bytes, flops = px * (c + kk) * 2, 2.0 * 16 * c * kk * tiles
+        t_fwd = _conv_timing(
+            torch, lambda: k.winograd_fwd(x, u),
+            lambda: k.winograd_fwd_plain(x, u),
+            lambda: F.conv2d(x, w16, padding=1), io_bytes + 16 * c * kk * 2,
+            flops)
+        t_dw = _conv_timing(
+            torch, lambda: k.winograd_dw(x, g),
+            lambda: k.winograd_dw_plain(x, g),
+            _conv_bwd_library(torch, g, x, w16, [False, True, False]),
+            io_bytes + 16 * c * kk * 4, flops)
+        notes.append(
+            f"B5 at {where}: fwd {t_fwd['ms']:.4f} ms (plain "
+            f"{t_fwd['plain_ms']:.4f}, library {t_fwd['library_ms']:.4f}, "
+            f"bound {t_fwd['bound_ms']:.4f} {t_fwd['bound_by']}); dw "
+            f"{t_dw['ms']:.4f} (plain {t_dw['plain_ms']:.4f}, library "
+            f"{t_dw['library_ms']:.4f}, bound {t_dw['bound_ms']:.4f} "
+            f"{t_dw['bound_by']})")
+        if not timing:   # the row: layer2, the path's largest tensors
+            timing = {"fwd": t_fwd, "dw": t_dw}
+        del x, g
+    # The autograd function against autograd of the plain forward (which
+    # rounds at other points: dM and dV in float32, dU to bf16): within
+    # 1e-2 in relative norm.
+    x, wt, g = _conv_inputs(torch, gen, 64, 128, 128, 8, 8)
+    w16 = wt.to(torch.bfloat16)
+
+    def plain(xx, ww):
+        return k.winograd_fwd_plain(
+            xx, k.transform_filter(ww).to(torch.bfloat16))
+
+    got = _autograd_grads(torch, k.winograd_conv3x3, x, w16, g.float())
+    want = _autograd_grads(torch, plain, x, w16, g.float())
+    rel = [_rel_norm(a, b) for a, b in zip(got, want)]
+    if not max(rel) < 1e-2:
+        raise AssertionError(f"B5 autograd function: relative errors {rel}")
+    notes.append(f"B5 autograd function within 1e-2 in norm (y, dx, dw: "
+                 + ", ".join(f"{r:.2e}" for r in rel) + ")")
+    return err, timing
+
+
+def _conv_refusals(torch, c64, wino, gen):
+    """Operands the kernels cannot take raise on the card; a shape outside
+    winograd.supported() takes the direct convolution (no launch)."""
+    x32, w32, _ = _conv_inputs(torch, gen, 2, 32, 32, 6, 6)
+    x64, w64, _ = _conv_inputs(torch, gen, 2, 64, 64, 6, 6)
+    x7, w7, _ = _conv_inputs(torch, gen, 2, 128, 128, 7, 7)
+    u = wino.transform_filter(w64).to(torch.bfloat16)
+    calls = (lambda: c64.conv_c64(x32, w32),              # C != 64
+             lambda: c64.conv_c64(x64.float(), w64),      # float32
+             lambda: wino.winograd_fwd(x64.float(), u),   # float32
+             lambda: wino.winograd_fwd(
+                 x7, wino.transform_filter(w7).to(torch.bfloat16)))  # odd
+    refused = 0
+    for call in calls:
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    if refused != len(calls):
+        raise AssertionError("an operand the conv kernels refuse did not "
+                             "raise")
+    before = wino.winograd_fwd.launches
+    wino.winograd_conv3x3(x7, w7)
+    if wino.winograd_fwd.launches != before:
+        raise AssertionError("an unsupported shape reached the kernel")
+
+
+@phase("conv")
+def conv_phase(torch):
+    import torch.nn.functional as F
+    from simclr_tpu_torch.ops.kernels import conv64, winograd
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    notes = []
+    b4_err, b4 = _b4(torch, F, conv64, gen, notes)
+    b5_err, b5 = _b5(torch, F, winograd, conv64.rot180_swap, gen, notes)
+    _conv_refusals(torch, conv64, winograd, gen)
+    for line in notes:
+        print(f"  {line}")
+    b4["fwd"]["max_abs_err"], b4["wgrad"]["max_abs_err"] = (
+        b4_err["fwd"], b4_err["wgrad"])
+    b5["fwd"]["max_abs_err"], b5["dw"]["max_abs_err"] = (
+        b5_err["fwd"], b5_err["dw"])
+    rows = {"conv64_fwd": b4["fwd"], "conv64_wgrad": b4["wgrad"],
+            "winograd_fwd": b5["fwd"], "winograd_dw": b5["dw"]}
+    times = "; ".join(f"{name} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}"
+                      f", library {t['library_ms']:.4f})"
+                      for name, t in rows.items())
+    return {"timing": rows,
+            "summary": "B4f/B5f within one bf16 ulp of the plain versions, "
+                       "B4w/B5w sums within 2e-5 of sum|terms|, at the "
+                       "path's and ragged shapes; refused operands raise; "
+                       + times}
+
+
 def _counters():
-    from simclr_tpu_torch.ops.kernels import bn_relu, color, ntxent
+    from simclr_tpu_torch.ops.kernels import (
+        bn_relu, color, conv64, ntxent, winograd)
     return {"ntxent_fwd": ntxent.ntxent_fwd, "ntxent_bwd": ntxent.ntxent_bwd,
             "color": color.color_distort, "bn_bwd_relu": bn_relu.bwd_relu,
             "bn_bwd_add_relu": bn_relu.bwd_add_relu,
-            "bn_bwd_norelu": bn_relu.bwd_norelu}
+            "bn_bwd_norelu": bn_relu.bwd_norelu,
+            "conv64_fwd": conv64.conv_c64, "conv64_wgrad": conv64.wgrad_c64,
+            "winograd_fwd": winograd.winograd_fwd,
+            "winograd_dw": winograd.winograd_dw}
 
 
 def reset_counts():
@@ -592,10 +875,23 @@ def bnrelu_slice_phase(torch, smi):
                                         "bn_bwd_norelu": 4})
 
 
+@phase("conv_slice")
+def conv_slice_phase(torch, smi):
+    from simclr_tpu_torch.config import Config, ModelConfig
+    cfg = Config(model=ModelConfig(conv64_pallas=True, winograd_conv2=True))
+    # layer1_0-2 conv2 through B4: forward and dx on B4f, dW on B4w;
+    # layer2_1-3, layer3_1-5 and layer4_1-2 conv2 through B5.
+    return _run_slice(torch, smi, cfg, {"conv64_fwd": 6, "conv64_wgrad": 3,
+                                        "winograd_fwd": 20,
+                                        "winograd_dw": 10})
+
+
 _CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("ntxent (B1)", ("ntxent",)),
     ("colour (B2)", ("color_kernel",)),
     ("bn_relu (B3)", ("bn_bwd",)),
+    ("conv64 (B4)", ("conv64_",)),
+    ("winograd (B5)", ("winograd_",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit",
                      "xmma", "cutlass", "nhwc", "nchw")),
     ("matmul", ("gemm", "matmul")),
@@ -669,12 +965,37 @@ def bnrelu_profile_phase(torch, run):
     return _profile(torch, run)
 
 
+@phase("conv_profile")
+def conv_profile_phase(torch, run):
+    return _profile(torch, run)
+
+
 def _release(torch, run):
     """Drop a slice's model, optimizer and data before the next one, so
     that its peak memory is its own."""
     run.clear()
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# Parity configurations: (name, ModelConfig overrides, tolerance on the
+# losses' relative difference, kernels that must have run on the card).
+_PARITY = (
+    # float32 both sides (TF32 off); cuDNN and the CPU sum convolutions in
+    # another order, and the second step follows an Adam update.
+    ("default", dict(compute_dtype="float32", bn_dtype="float32"), 1e-3,
+     ()),
+    ("bn_relu_fused", dict(compute_dtype="float32", bn_dtype="float32",
+                           bn_relu_fused=True), 1e-3,
+     ("bn_bwd_relu", "bn_bwd_add_relu", "bn_bwd_norelu")),
+    # bf16, which both conv gates need: layer3_1 (64 features) takes B4,
+    # layer4_1 (128) takes B5. The other convolutions and the BN passes
+    # round to bf16 in cuDNN's and the CPU's own orders: an output moves by
+    # a bf16 step (0.4%) here and there, and the loss by far less.
+    ("conv64+winograd", dict(stage_sizes=(1, 1, 2, 2), conv64_pallas=True,
+                             winograd_conv2=True), 1e-2,
+     ("conv64_fwd", "conv64_wgrad", "winograd_fwd", "winograd_dw")),
+)
 
 
 @phase("parity")
@@ -686,11 +1007,9 @@ def parity_phase(torch):
 
     images, _ = synthetic_dataset(40, img_size=32, seed=1)
     notes = []
-    for fused in (False, True):
-        cfg = Config(model=ModelConfig(
-            feature_dim=512, stage_sizes=(1, 1, 1, 1), width=16,
-            compute_dtype="float32", bn_dtype="float32",
-            bn_relu_fused=fused))
+    for name, over, tol, kernels in _PARITY:
+        small = dict(feature_dim=512, stage_sizes=(1, 1, 1, 1), width=16)
+        cfg = Config(model=ModelConfig(**{**small, **over}))
         cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                     batch_size=40))
         gen = torch.Generator().manual_seed(2)
@@ -709,20 +1028,17 @@ def parity_phase(torch):
                                                                pair)
                 losses.append(loss.item())
             result[dev] = losses
-            if dev == "cuda" and fused and not all(read_counts().values()):
-                raise AssertionError(f"a B3 kernel did not run on the card: "
-                                     f"{read_counts()}")
+            counts = read_counts()
+            if dev == "cuda" and not all(counts[k] for k in kernels):
+                raise AssertionError(f"{name}: a kernel did not run on the "
+                                     f"card: {counts}")
         diff = max(abs(a - b) / abs(b) for a, b in zip(result["cuda"],
                                                        result["cpu"]))
-        # float32 both sides (TF32 off); cuDNN and the CPU sum
-        # convolutions in another order, and the second step follows an
-        # Adam update.
-        if not diff < 1e-3:
-            raise AssertionError(f"bn_relu_fused={fused}: card "
-                                 f"{result['cuda']} vs cpu {result['cpu']}")
-        notes.append(f"bn_relu_fused={fused}: losses card {result['cuda']} "
-                     f"cpu {result['cpu']}, max rel diff {diff:.2e} "
-                     f"(tol 1e-3)")
+        if not diff < tol:
+            raise AssertionError(f"{name}: card {result['cuda']} vs cpu "
+                                 f"{result['cpu']}")
+        notes.append(f"{name}: losses card {result['cuda']} cpu "
+                     f"{result['cpu']}, max rel diff {diff:.2e} (tol {tol})")
     return {"summary": "; ".join(notes)}
 
 
@@ -748,6 +1064,11 @@ def main() -> int:
     bnrelu_profile_phase(torch, bsl)
     b3_launches = bsl["launches"]
     _release(torch, bsl)
+    conv = conv_phase(torch)
+    csl = conv_slice_phase(torch, info["smi"])
+    conv_profile_phase(torch, csl)
+    conv_launches = csl["launches"]
+    _release(torch, csl)
     parity_phase(torch)
 
     src = "simclr_tpu_torch/csrc/"
@@ -773,6 +1094,15 @@ def main() -> int:
              replaces=b3_src + "98", launches=b3_launches["bn_bwd_norelu"],
              **b3["timing"]["none"]),
     ]
+    for name, src_file, replaces in (
+            ("conv64_fwd", "conv64.cu", "conv64.py:160"),
+            ("conv64_wgrad", "conv64.cu", "conv64.py:250"),
+            ("winograd_fwd", "winograd.cu", "winograd.py:218"),
+            ("winograd_dw", "winograd.cu", "winograd.py:238")):
+        rows.append(dict(name=name, src=src + src_file,
+                         replaces="simclr_tpu/ops/pallas/" + replaces,
+                         launches=conv_launches[name],
+                         **conv["timing"][name]))
     kernels = [{"name": r["name"], "route": "cuda", "source": r["src"],
                 "replaces": r["replaces"], "launches": r["launches"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

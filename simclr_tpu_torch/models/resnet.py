@@ -1,10 +1,12 @@
 """ResNet encoder with subset-statistics BatchNorm.
 
 Counterpart of ``simclr_tpu/models/resnet.py``'s default path and its
-``bn_relu_fused`` and ``bn_fused_vjp`` paths: ``Bottleneck`` (1x1 ->
-3x3(stride) -> 1x1, expansion 4, with ``shadow_bn3`` or with the block's
-BNs as ``SubsetBNAct``) and ``ResNetEncoder`` with the CIFAR stem (3x3
-stride 1, no max-pool) or the STL stem (7x7 stride 2, 3x3 stride-2
+``bn_relu_fused``, ``bn_fused_vjp``, ``winograd_conv2`` and
+``conv64_pallas`` paths: ``Bottleneck`` (1x1 -> 3x3(stride) -> 1x1,
+expansion 4, with ``shadow_bn3`` or with the block's BNs as
+``SubsetBNAct``, and conv2 through kernel B5 or B4 where the flags and
+the block's shape select them) and ``ResNetEncoder`` with the CIFAR stem
+(3x3 stride 1, no max-pool) or the STL stem (7x7 stride 2, 3x3 stride-2
 max-pool).
 
 Inputs are NCHW, normally in ``torch.channels_last`` memory (physically
@@ -26,6 +28,8 @@ import torch.nn.functional as F
 
 from simclr_tpu_torch.models.norm import (
     SubsetBatchNorm, SubsetBNAct, stats_rows)
+from simclr_tpu_torch.ops.kernels.conv64 import conv3x3_c64
+from simclr_tpu_torch.ops.kernels.winograd import winograd_conv3x3
 
 # Truncated normal on [-2, 2] standard deviations has this std; flax's
 # variance_scaling divides by it so the kept draws have the asked variance.
@@ -57,6 +61,35 @@ class Conv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), None,
                         self.stride, self.padding)
+
+
+class WinogradConv3x3(Conv):
+    """The stride-1 SAME 3x3 ``Conv`` (same ``weight``, init and name)
+    computed by ``winograd_conv3x3`` (kernels B5f/B5w) in ``dtype``, with
+    the weight rounded to ``dtype`` before its transform, as JAX's
+    ``WinogradConv3x3`` passes ``w.astype(dtype)``."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(features, features, 3, 1, 1, dtype=dtype,
+                         generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return winograd_conv3x3(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+class PallasConv3x3C64(Conv):
+    """The stride-1 SAME 3x3 ``Conv`` at 64 channels (same ``weight``,
+    init and name) computed by ``conv3x3_c64`` (kernels B4f/B4w) on the
+    float32 weight, so its gradient stays float32, as in JAX's
+    ``PallasConv3x3C64``."""
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(64, 64, 3, 1, 1, dtype=dtype, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3x3_c64(x.to(self.dtype), self.weight)
 
 
 class Linear(nn.Linear):
@@ -94,7 +127,12 @@ class Bottleneck(nn.Module):
 
     ``bnact``: when given, it makes bn1 and bn2 (mode 'relu'),
     downsample_bn ('none') and bn3 with the residual ('add_relu'), and
-    shadow statistics are off."""
+    shadow statistics are off.
+
+    conv2 is a ``WinogradConv3x3`` if ``winograd_conv2``, stride 1,
+    ``features % 128 == 0`` and bf16 compute; else a ``PallasConv3x3C64``
+    if ``conv64_pallas``, stride 1, ``features == 64`` and bf16 compute;
+    else the plain ``Conv`` (the choice of JAX's ``Bottleneck``)."""
 
     expansion = 4
 
@@ -103,6 +141,7 @@ class Bottleneck(nn.Module):
                  stats_fraction: float, shadow_bn3: bool = False,
                  min_stats_samples: int = 64,
                  bnact: Optional[BNActFactory] = None,
+                 winograd_conv2: bool = False, conv64_pallas: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         out = features * self.expansion
@@ -117,8 +156,14 @@ class Bottleneck(nn.Module):
         self.conv1 = Conv(in_features, features, 1, dtype=dtype,
                           generator=generator)
         self.bn1 = bn(features, "relu")
-        self.conv2 = Conv(features, features, 3, stride, 1, dtype=dtype,
-                          generator=generator)
+        bf16 = dtype == torch.bfloat16
+        if winograd_conv2 and stride == 1 and features % 128 == 0 and bf16:
+            self.conv2 = WinogradConv3x3(features, dtype, generator)
+        elif conv64_pallas and stride == 1 and features == 64 and bf16:
+            self.conv2 = PallasConv3x3C64(dtype, generator)
+        else:
+            self.conv2 = Conv(features, features, 3, stride, 1, dtype=dtype,
+                              generator=generator)
         self.bn2 = bn(features, "relu")
         self.conv3 = Conv(features, out, 1, dtype=dtype, generator=generator)
         self.bn3 = bn(out, "add_relu")
@@ -165,6 +210,8 @@ class ResNetEncoder(nn.Module):
                  bn_fused_vjp: bool = False,
                  bn_relu_fused: bool = False,
                  bn_relu_impl: str = "pallas",
+                 winograd_conv2: bool = False,
+                 conv64_pallas: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
@@ -202,7 +249,8 @@ class ResNetEncoder(nn.Module):
                     in_features, features, stride, norm, dtype,
                     bn_stats_fraction,
                     shadow_bn3=bn3_shadow_stats and not bn_fused_vjp,
-                    bnact=bnact, generator=generator))
+                    bnact=bnact, winograd_conv2=winograd_conv2,
+                    conv64_pallas=conv64_pallas, generator=generator))
                 self.block_names.append(name)
                 in_features = features * Bottleneck.expansion
         self.out_features = in_features

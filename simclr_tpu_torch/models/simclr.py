@@ -6,7 +6,9 @@ bias-free Linear -> BN (reference: models/simclr.py:27-41).
 
 The default path of ``ModelConfig`` is ported, and with it
 ``bn_relu_fused`` (the block BNs as ``SubsetBNAct``, backward through
-kernel B3) and ``bn_fused_vjp``. A flag that selects another path (the
+kernel B3), ``bn_fused_vjp``, ``winograd_conv2`` (kernel B5) and
+``conv64_pallas`` (kernel B4); their ``*_interpret`` twins are unused
+(on the CPU the kernel wrappers run their plain versions). A flag that selects another path (the
 fused or folded blocks, the other Pallas-kernel paths, MC dropout, ...)
 raises ``NotImplementedError`` rather than quietly running the default.
 """
@@ -34,8 +36,6 @@ _UNPORTED_OFF = {
     "bn12_shadow_stages": (),
     "conv_wgrad_fraction": 1.0,
     "relu_from_output": False,
-    "winograd_conv2": False,
-    "conv64_pallas": False,
     "remat_stages": (),
 }
 
@@ -73,6 +73,8 @@ def _make_encoder(cfg: ModelConfig,
         bn_fused_vjp=bool(cfg.bn_fused_vjp),
         bn_relu_fused=bool(cfg.bn_relu_fused),
         bn_relu_impl=cfg.bn_relu_impl,
+        winograd_conv2=bool(cfg.winograd_conv2),
+        conv64_pallas=bool(cfg.conv64_pallas),
         generator=generator,
     )
 

@@ -36,6 +36,8 @@ def test_every_port_module_imports_without_jax():
     modules = _modules()
     assert "simclr_tpu_torch.ops.kernels.bn_relu" in modules
     assert "simclr_tpu_torch.ops.subset_bn" in modules
+    assert "simclr_tpu_torch.ops.kernels.conv64" in modules
+    assert "simclr_tpu_torch.ops.kernels.winograd" in modules
     root = Path(simclr_tpu_torch.__file__).resolve().parents[1]
     result = subprocess.run(
         [sys.executable, "-c", _SCRIPT.format(blocked=BLOCKED,
