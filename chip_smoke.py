@@ -40,11 +40,21 @@ Phases, each printed as one line with its result and wall time:
    ``ModelConfig(conv64_pallas=True, winograd_conv2=True)``: layer1's
    three conv2 through B4 (6 B4f, 3 B4w launches a step), the ten other
    stride-1 conv2 through B5 (20 B5f, 10 B5w).
-11. parity: width-16 models, the default and the bn_relu_fused one in
-   float32 and one with ``conv64_pallas`` and ``winograd_conv2`` in bf16,
-   take two steps on the card (kernels) and on the CPU (plain versions)
-   from the same weights, batch and augmentation draws; the losses must
-   agree.
+11. bottleneck: kernels B6f/B6b (the fused identity bottleneck, forward
+   and recompute-backward) against their plain versions at the four
+   stage shapes of ResNet-50 at 1,024 images and at two ragged ones; the
+   autograd function against autograd of the plain forward; refused
+   operands must raise. Each kernel is timed beside its plain version and
+   the unfused block (cuDNN convs and PyTorch elementwise, forward and
+   forward + backward).
+12. fused_slice, fused_profile: phases 6 and 7 with
+   ``ModelConfig(fuse_identity_blocks=True)``: the 12 identity blocks
+   through B6f and B6b (12 launches of each a step).
+13. parity: width-16 models, the default and the bn_relu_fused one in
+   float32 and ones with ``conv64_pallas`` and ``winograd_conv2`` and with
+   ``fuse_identity_blocks`` in bf16, take two steps on the card (kernels)
+   and on the CPU (plain versions) from the same weights, batch and
+   augmentation draws; the losses must agree.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -150,7 +160,7 @@ def env(torch):
 @phase("build")
 def build():
     from simclr_tpu_torch.ops.kernels import (
-        _build, bn_relu, color, ntxent, winograd)
+        _build, bn_relu, bottleneck, color, ntxent, winograd)
     lib_path = _build.build()
     lib = _build.library()
     if lib.ntxent_max_dim() != ntxent.MAX_DIM:
@@ -164,6 +174,14 @@ def build():
             or lib.winograd_dw_ranges(1, 2, 2, winograd.BLOCK // 2,
                                       winograd.BLOCK) != -1):
         raise RuntimeError("winograd BLOCK disagrees with the CUDA source")
+    # The C side takes exactly the widths and row lengths supports() does.
+    work = lib.bottleneck_bwd_workspace
+    if work(1, 1, 1, 32) != 0 or not all(
+            work(1, 1, bottleneck.TILE_ELEMS // c, c) > 0
+            and work(1, 1, bottleneck.TILE_ELEMS // c + 1, c) == 0
+            for c in bottleneck.WIDTHS):
+        raise RuntimeError("bottleneck WIDTHS/TILE_ELEMS disagree with the "
+                           "CUDA source")
     log = (lib_path.parent / "build.log").read_text()
     for name, frame, usage in _ptxas_usage(log):
         print(f"  ptxas: {name}: {usage}; {frame}")
@@ -772,16 +790,230 @@ def conv_phase(torch):
                        + times}
 
 
+# B6 comparisons: (N, C, H, W) with x of 4C channels. The first four are
+# the identity blocks of layer1-4 at batch 512 (2N = 1,024 images); the
+# ragged ones have an odd batch, H = W = 7, and tiles that span images and
+# end past the batch.
+_B6_SHAPES = ((1024, 64, 32, 32), (1024, 128, 16, 16), (1024, 256, 8, 8),
+              (1024, 512, 4, 4), (5, 128, 7, 7), (3, 512, 7, 7))
+_B6_NAMES = ("dx", "dw1", "dw2", "dw3", "dA1", "dB1", "dA2", "dB2", "dA3",
+             "dB3")
+
+
+def _b6_inputs(torch, gen, n, c, h, w):
+    """bf16 x and cotangent (N, 4C, H, W) in channels_last, float32 weights
+    at the model's init scale and affines that give unit-scale
+    pre-activations (var(y1) = 8, var(y2) = 1, var(y3) = 1/4 at these
+    weights), so that about half of each ReLU is open."""
+    cl, f = torch.channels_last, 4 * c
+
+    def rnd(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    x = rnd(n, f, h, w).to(torch.bfloat16).contiguous(memory_format=cl)
+    g = rnd(n, f, h, w).to(torch.bfloat16).contiguous(memory_format=cl)
+    w1 = rnd(c, f, 1, 1) * (2.0 / c) ** 0.5
+    w2 = rnd(c, c, 3, 3) * (2.0 / (9 * c)) ** 0.5
+    w3 = rnd(f, c, 1, 1) * (2.0 / f) ** 0.5
+    aff = []
+    for dim, scale in ((c, 8 ** -0.5), (c, 1.0), (f, 2.0)):
+        aff += [(1.0 + 0.1 * rnd(dim)) * scale, 0.2 * rnd(dim)]
+    return x, g, (w1, w2, w3), tuple(aff)
+
+
+def _unfused_block(torch, F, x, ws16, aff):
+    """The block as the model's plain-ops branch computes it in bf16:
+    cuDNN convolutions with bf16 outputs, the affines and ReLUs as
+    PyTorch elementwise passes. The yardstick for B6 (library_ms)."""
+    cs = (1, -1, 1, 1)
+
+    def act(y, a, b):
+        return torch.relu(y.float() * a.view(cs) + b.view(cs)).to(y.dtype)
+
+    a1 = act(F.conv2d(x, ws16[0]), aff[0], aff[1])
+    a2 = act(F.conv2d(a1, ws16[1], padding=1), aff[2], aff[3])
+    return torch.relu(F.conv2d(a2, ws16[2]).float() * aff[4].view(cs)
+                      + aff[5].view(cs) + x.float()).to(x.dtype)
+
+
+def _b6_check(torch, got, want, what, fails):
+    """Each output against the plain version; a miss is appended to
+    ``fails``. The two sum in other orders, so an intermediate (a1, a2,
+    dy1-3) rounds apart by one bf16 step here and there, and where a
+    pre-activation lies within that error of 0 a ReLU mask flips: the
+    element then differs by its whole size, and the backward spreads it
+    through 3x3 neighbourhoods in every channel. Measured against a
+    float64 evaluation of the same roundings, the plain version's own dx
+    is 1.5e-3 (C = 64) to 5.3e-3 (C = 512) off in relative norm, the
+    kernel's (longer sequential float32 sums) at most 2.3x that. So out
+    must be within one bf16 ulp plus 1e-3 of its largest entry at all but
+    1e-3 of its elements and within 2e-3 in relative norm (its masks move
+    it continuously); dx within 2e-2 and every float32 sum within 3e-2 in
+    relative norm (measured up to 1.24e-2 and 1.43e-2). Returns the
+    largest absolute difference."""
+    worst = 0.0
+    for name, a, b in zip(what, got, want):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        tol = 2e-3 if name.endswith("out") else (
+            2e-2 if name.endswith("dx") else 3e-2)
+        if name.endswith("out"):
+            frac = (err > _ULP * b.abs() + 1e-3 * b.abs().max()).float() \
+                .mean().item()
+            if not frac <= 1e-3:
+                fails.append(f"{name}: {frac:.2e} of the elements beyond "
+                             "one ulp")
+        rel = _rel_norm(a, b)
+        if not rel <= tol:
+            fails.append(f"{name}: relative error {rel:.3e} (tolerance "
+                         f"{tol})")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def _b6_autograd(torch, k, gen):
+    """fused_bottleneck (B6f, B6b) against autograd of the plain forward:
+    the same function, rounded at other points (autograd's dy are the
+    gradients of the bf16 activations, not bf16(u A)), so within 1e-2 in
+    relative norm."""
+    x, g, ws, aff = _b6_inputs(torch, gen, 16, 128, 8, 8)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, *ws, *aff)]
+        out = fn(leaves[0], *leaves[1:4], tuple(leaves[4:]))
+        (out.float() * g.float()).sum().backward()
+        return [out.detach()] + [t.grad for t in leaves]
+
+    got = grads(k.fused_bottleneck)
+    want = grads(k.fused_bottleneck_plain)
+    rel = [_rel_norm(a, b) for a, b in zip(got, want)]
+    if not max(rel) < 1e-2:
+        raise AssertionError(f"B6 autograd function: relative errors {rel}")
+    return max(rel)
+
+
+def _b6_refusals(torch, k, gen):
+    """float32 x, C % 16 != 0, and W beyond a tile row raise on the card."""
+    x, _, ws, aff = _b6_inputs(torch, gen, 2, 64, 4, 4)
+    x40, _, ws40, aff40 = _b6_inputs(torch, gen, 2, 40, 4, 4)
+    xw, _, wsw, affw = _b6_inputs(torch, gen, 1, 512, 2, 32)
+    calls = (lambda: k.bottleneck_fwd(x.float(), *ws, aff),
+             lambda: k.bottleneck_fwd(x40, *ws40, aff40),
+             lambda: k.bottleneck_bwd(x40, *ws40, aff40, x40),
+             lambda: k.bottleneck_fwd(xw, *wsw, affw))
+    refused = 0
+    for call in calls:
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    if refused != len(calls):
+        raise AssertionError("an operand the bottleneck kernels refuse did "
+                             "not raise")
+
+
+@phase("bottleneck")
+def bottleneck_phase(torch):
+    import torch.nn.functional as F
+    from simclr_tpu_torch.ops.kernels import bottleneck as k
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    err = {"fwd": 0.0, "bwd": 0.0}
+    notes, stages, fails = [], {}, []
+    for n, c, h, w in _B6_SHAPES:
+        x, g, ws, aff = _b6_inputs(torch, gen, n, c, h, w)
+        where = f"{n}x{4 * c}x{h}x{w}"
+        out = k.bottleneck_fwd(x, *ws, aff)
+        plain = k.fused_bottleneck_plain(x, *ws, aff)
+        e_f = _b6_check(torch, [out], [plain], [f"B6f {where} out"], fails)
+        got = k.bottleneck_bwd(x, *ws, aff, g)
+        want = k.fused_bottleneck_bwd_plain(x, *ws, aff, g)
+        e_b = _b6_check(torch, got, want,
+                        [f"B6b {where} {m}" for m in _B6_NAMES], fails)
+        err["fwd"], err["bwd"] = max(err["fwd"], e_f), max(err["bwd"], e_b)
+        print(f"  B6 {where}, relative errors: out "
+              f"{_rel_norm(out, plain):.2e}; " + ", ".join(
+                  f"{m} {_rel_norm(a, b):.2e}" for m, a, b
+                  in zip(_B6_NAMES, got, want)), flush=True)
+        del got, want
+        if fails or n != 1024:
+            continue
+        px, f = n * h * w, 4 * c
+        w_elems = 2 * f * c + 9 * c * c
+        flops = 2.0 * px * w_elems
+        ws16 = [t.to(torch.bfloat16) for t in ws]
+
+        def unfused_fwd_bwd():
+            leaves = [t.detach().requires_grad_() for t in (x, *ws16)]
+            _unfused_block(torch, F, leaves[0], leaves[1:], aff).backward(g)
+
+        t = {"fwd": dict(
+                ms=median_ms(torch, lambda: k.bottleneck_fwd(x, *ws, aff)),
+                plain_ms=median_ms(torch, lambda: k.fused_bottleneck_plain(
+                    x, *ws, aff)),
+                library_ms=median_ms(torch, lambda: _unfused_block(
+                    torch, F, x, ws16, aff))),
+             "bwd": dict(
+                ms=median_ms(torch, lambda: k.bottleneck_bwd(
+                    x, *ws, aff, g)),
+                plain_ms=median_ms(
+                    torch, lambda: k.fused_bottleneck_bwd_plain(
+                        x, *ws, aff, g)),
+                library_ms=median_ms(torch, unfused_fwd_bwd))}
+        # Bytes: x (and g) read once, out (dx) written once, bf16 weights
+        # read, float32 weight gradients and affines written; operations:
+        # the three products (B6b: the recomputed forward, dgrad, wgrad).
+        t["fwd"]["bound_ms"], t["fwd"]["bound_by"] = bound_ms(
+            2 * px * f * 2 + w_elems * 2 + 6 * c * 4 * 2, flops,
+            PEAK_BF16_FLOPS)
+        t["bwd"]["bound_ms"], t["bwd"]["bound_by"] = bound_ms(
+            3 * px * f * 2 + w_elems * (2 + 4) + 12 * c * 4 * 2, 3 * flops,
+            PEAK_BF16_FLOPS)
+        stages[c] = t
+        notes.append(
+            f"B6 at {where}: fwd {t['fwd']['ms']:.4f} ms (plain "
+            f"{t['fwd']['plain_ms']:.4f}, unfused "
+            f"{t['fwd']['library_ms']:.4f}, bound "
+            f"{t['fwd']['bound_ms']:.4f} {t['fwd']['bound_by']}); "
+            f"bwd {t['bwd']['ms']:.4f} (plain {t['bwd']['plain_ms']:.4f}, "
+            f"unfused fwd+bwd {t['bwd']['library_ms']:.4f}, bound "
+            f"{t['bwd']['bound_ms']:.4f} {t['bwd']['bound_by']})")
+        del x, g
+    if fails:
+        raise AssertionError("; ".join(fails))
+    worst = _b6_autograd(torch, k, gen)
+    _b6_refusals(torch, k, gen)
+    for line in notes:
+        print(f"  {line}")
+    # The row: layer1, the path's largest tensors; every stage in notes.
+    rows = {"bottleneck_fwd": dict(stages[64]["fwd"],
+                                   max_abs_err=err["fwd"]),
+            "bottleneck_bwd": dict(stages[64]["bwd"],
+                                   max_abs_err=err["bwd"])}
+    return {"timing": rows,
+            "summary": "B6f within one bf16 ulp at all but 1e-3 of the "
+                       "elements and 2e-3 in relative norm, B6b within 2e-2 "
+                       "(dx) and 3e-2 (sums) in relative norm of the plain "
+                       "versions at the four "
+                       "stage shapes and two ragged ones; autograd function"
+                       f" within 1e-2 ({worst:.2e}); refused operands "
+                       "raise; " + "; ".join(
+                           f"C={c}: fwd {t['fwd']['ms']:.4f} ms, bwd "
+                           f"{t['bwd']['ms']:.4f} ms" for c, t in
+                           stages.items())}
+
+
 def _counters():
     from simclr_tpu_torch.ops.kernels import (
-        bn_relu, color, conv64, ntxent, winograd)
+        bn_relu, bottleneck, color, conv64, ntxent, winograd)
     return {"ntxent_fwd": ntxent.ntxent_fwd, "ntxent_bwd": ntxent.ntxent_bwd,
             "color": color.color_distort, "bn_bwd_relu": bn_relu.bwd_relu,
             "bn_bwd_add_relu": bn_relu.bwd_add_relu,
             "bn_bwd_norelu": bn_relu.bwd_norelu,
             "conv64_fwd": conv64.conv_c64, "conv64_wgrad": conv64.wgrad_c64,
             "winograd_fwd": winograd.winograd_fwd,
-            "winograd_dw": winograd.winograd_dw}
+            "winograd_dw": winograd.winograd_dw,
+            "bottleneck_fwd": bottleneck.bottleneck_fwd,
+            "bottleneck_bwd": bottleneck.bottleneck_bwd}
 
 
 def reset_counts():
@@ -886,12 +1118,23 @@ def conv_slice_phase(torch, smi):
                                         "winograd_dw": 10})
 
 
+@phase("fused_slice")
+def fused_slice_phase(torch, smi):
+    from simclr_tpu_torch.config import Config, ModelConfig
+    cfg = Config(model=ModelConfig(fuse_identity_blocks=True))
+    # The 12 identity blocks (layer1_1-2, layer2_1-3, layer3_1-5,
+    # layer4_1-2): every one passes bottleneck.supports at batch 512.
+    return _run_slice(torch, smi, cfg, {"bottleneck_fwd": 12,
+                                        "bottleneck_bwd": 12})
+
+
 _CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("ntxent (B1)", ("ntxent",)),
     ("colour (B2)", ("color_kernel",)),
     ("bn_relu (B3)", ("bn_bwd",)),
     ("conv64 (B4)", ("conv64_",)),
     ("winograd (B5)", ("winograd_",)),
+    ("bottleneck (B6)", ("bottleneck_",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit",
                      "xmma", "cutlass", "nhwc", "nchw")),
     ("matmul", ("gemm", "matmul")),
@@ -970,6 +1213,11 @@ def conv_profile_phase(torch, run):
     return _profile(torch, run)
 
 
+@phase("fused_profile")
+def fused_profile_phase(torch, run):
+    return _profile(torch, run)
+
+
 def _release(torch, run):
     """Drop a slice's model, optimizer and data before the next one, so
     that its peak memory is its own."""
@@ -995,6 +1243,12 @@ _PARITY = (
     ("conv64+winograd", dict(stage_sizes=(1, 1, 2, 2), conv64_pallas=True,
                              winograd_conv2=True), 1e-2,
      ("conv64_fwd", "conv64_wgrad", "winograd_fwd", "winograd_dw")),
+    # bf16, which the B6 gate needs; stage_sizes give identity blocks
+    # layer1_1 (16 features: the plain-ops branch), layer3_1 (64) and
+    # layer4_1 (128), which take B6. Rounding as for conv64+winograd.
+    ("fuse_identity_blocks", dict(stage_sizes=(2, 1, 2, 2),
+                                  fuse_identity_blocks=True), 1e-2,
+     ("bottleneck_fwd", "bottleneck_bwd")),
 )
 
 
@@ -1069,6 +1323,11 @@ def main() -> int:
     conv_profile_phase(torch, csl)
     conv_launches = csl["launches"]
     _release(torch, csl)
+    b6 = bottleneck_phase(torch)
+    fsl = fused_slice_phase(torch, info["smi"])
+    fused_profile_phase(torch, fsl)
+    fused_launches = fsl["launches"]
+    _release(torch, fsl)
     parity_phase(torch)
 
     src = "simclr_tpu_torch/csrc/"
@@ -1103,6 +1362,13 @@ def main() -> int:
                          replaces="simclr_tpu/ops/pallas/" + replaces,
                          launches=conv_launches[name],
                          **conv["timing"][name]))
+    for name, replaces in (("bottleneck_fwd", "213"),
+                           ("bottleneck_bwd", "237")):
+        rows.append(dict(name=name, src=src + "bottleneck.cu",
+                         replaces="simclr_tpu/ops/pallas/bottleneck.py:"
+                                  + replaces,
+                         launches=fused_launches[name],
+                         **b6["timing"][name]))
     kernels = [{"name": r["name"], "route": "cuda", "source": r["src"],
                 "replaces": r["replaces"], "launches": r["launches"],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -1,6 +1,7 @@
-// Tensor-core and copy helpers shared by conv64.cu and winograd.cu
-// (sm_90a): bf16 mma.sync with float32 accumulation, ldmatrix, cp.async
-// with zero fill, and the once-per-device shared-memory opt-in.
+// Tensor-core and copy helpers shared by conv64.cu, winograd.cu and
+// bottleneck.cu (sm_90a): bf16 mma.sync with float32 accumulation,
+// ldmatrix, cp.async with zero fill, and the once-per-device shared-memory
+// opt-in.
 #pragma once
 
 #include <atomic>

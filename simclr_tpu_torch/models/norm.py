@@ -1,7 +1,7 @@
 """Batch normalisation with subset statistics.
 
-Counterpart of ``SubsetBatchNorm`` and ``SubsetBNAct`` in
-``simclr_tpu/models/norm.py``: the batch statistics come from the leading
+Counterpart of ``SubsetBatchNorm``, ``SubsetBNAct`` and ``FoldedBatchNorm``
+in ``simclr_tpu/models/norm.py``: the batch statistics come from the leading
 k = min(max(int(n * fraction), 64), n) rows of the batch (shuffled
 upstream, so the subset is uniform), or from ``x_subset`` when the caller
 recomputes those rows itself. Inputs are (N, C) or (N, C, H, W); the
@@ -206,3 +206,41 @@ class SubsetBNAct(nn.Module):
         _update_running(self, mean, var,
                         subset_bn.elems_per_channel(x.shape, k))
         return y
+
+
+class FoldedBatchNorm(nn.Module):
+    """BatchNorm that returns the folded per-channel affines (A, B) in
+    float32, normalize(y) == y * A + B with A = weight * rsqrt(var + eps)
+    and B = bias - mean * A, for the fused identity bottleneck
+    (``ops/kernels/bottleneck.py``). Same parameters and buffers as
+    ``SubsetBatchNorm``.
+
+    In training ``y_subset`` is the already-sliced statistics rows of the
+    pre-activations; mean and variance are the shifted one-pass statistics
+    around the running mean, the running averages take the flax momentum
+    and the variance unbiased over the subset's elements, and the gradient
+    reaches y_subset, weight and bias exactly, by autograd. In eval the
+    running statistics are folded and the input is ignored (may be None).
+    """
+
+    def __init__(self, features: int, *, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, y_subset=None):
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            k = y_subset.shape[0]
+            mean, var = subset_bn.bn_stats(y_subset,
+                                           self.running_mean.clone(), k)
+            _update_running(self, mean, var,
+                            subset_bn.elems_per_channel(y_subset.shape, k))
+        a = self.weight * torch.rsqrt(var + self.eps)
+        return a, self.bias - mean * a

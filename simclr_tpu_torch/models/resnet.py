@@ -1,11 +1,12 @@
 """ResNet encoder with subset-statistics BatchNorm.
 
 Counterpart of ``simclr_tpu/models/resnet.py``'s default path and its
-``bn_relu_fused``, ``bn_fused_vjp``, ``winograd_conv2`` and
-``conv64_pallas`` paths: ``Bottleneck`` (1x1 -> 3x3(stride) -> 1x1,
-expansion 4, with ``shadow_bn3`` or with the block's BNs as
-``SubsetBNAct``, and conv2 through kernel B5 or B4 where the flags and
-the block's shape select them) and ``ResNetEncoder`` with the CIFAR stem
+``bn_relu_fused``, ``bn_fused_vjp``, ``winograd_conv2``, ``conv64_pallas``
+and ``fuse_identity_blocks`` paths: ``Bottleneck`` (1x1 -> 3x3(stride) ->
+1x1, expansion 4, with ``shadow_bn3`` or with the block's BNs as
+``SubsetBNAct``, conv2 through kernel B5 or B4 where the flags and the
+block's shape select them, or the whole identity block through kernels
+B6f/B6b) and ``ResNetEncoder`` with the CIFAR stem
 (3x3 stride 1, no max-pool) or the STL stem (7x7 stride 2, 3x3 stride-2
 max-pool).
 
@@ -27,7 +28,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from simclr_tpu_torch.models.norm import (
-    SubsetBatchNorm, SubsetBNAct, stats_rows)
+    FoldedBatchNorm, SubsetBatchNorm, SubsetBNAct, stats_rows)
+from simclr_tpu_torch.ops.kernels import bottleneck
 from simclr_tpu_torch.ops.kernels.conv64 import conv3x3_c64
 from simclr_tpu_torch.ops.kernels.winograd import winograd_conv3x3
 
@@ -115,6 +117,13 @@ NormFactory = Callable[[int], SubsetBatchNorm]
 BNActFactory = Callable[[int, str], SubsetBNAct]
 
 
+def _affine_relu(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 dt: torch.dtype) -> torch.Tensor:
+    """relu(y * A + B) in float32 with per-channel A, B, cast to dt."""
+    cs = (1, -1, 1, 1)
+    return F.relu(y.float() * a.view(cs) + b.view(cs)).to(dt)
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3(stride) -> 1x1 bottleneck with identity or projection
     shortcut. The 3x3 conv2 carries the stride with explicit (1, 1)
@@ -132,7 +141,20 @@ class Bottleneck(nn.Module):
     conv2 is a ``WinogradConv3x3`` if ``winograd_conv2``, stride 1,
     ``features % 128 == 0`` and bf16 compute; else a ``PallasConv3x3C64``
     if ``conv64_pallas``, stride 1, ``features == 64`` and bf16 compute;
-    else the plain ``Conv`` (the choice of JAX's ``Bottleneck``)."""
+    else the plain ``Conv`` (the choice of JAX's ``Bottleneck``).
+
+    ``fused`` (a stride-1 identity block only, in = out = 4 * features):
+    the block's BNs are ``FoldedBatchNorm`` and conv2 the plain ``Conv``
+    (whatever ``winograd_conv2`` and ``conv64_pallas`` say), and the
+    block runs as JAX's ``Bottleneck._fused_block``. In training, pass A
+    runs conv1/bn1/conv2/bn2/conv3 on the leading k statistics rows only
+    (per-sample ops commute with row slicing) to get the three folded
+    affines; in eval they fold the running statistics. The whole batch
+    then goes through ``ops.kernels.bottleneck.fused_bottleneck`` (B6f,
+    and B6b for every gradient) in bf16 where its gate takes the shape,
+    and through the same math in plain ops otherwise (another compute
+    dtype, or a shape the gate refuses), with every conv output rounded
+    to the compute dtype as there."""
 
     expansion = 4
 
@@ -142,21 +164,25 @@ class Bottleneck(nn.Module):
                  min_stats_samples: int = 64,
                  bnact: Optional[BNActFactory] = None,
                  winograd_conv2: bool = False, conv64_pallas: bool = False,
+                 fused: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         out = features * self.expansion
         self.stats_fraction = stats_fraction
         self.min_stats_samples = min_stats_samples
-        self.fused_bn = bnact is not None
+        self.fused = fused and stride == 1 and in_features == out
+        self.fused_bn = bnact is not None and not self.fused
         self.shadow_bn3 = shadow_bn3 and not self.fused_bn
 
         def bn(f, mode):
+            if self.fused:
+                return FoldedBatchNorm(f, momentum=0.9, eps=1e-5)
             return norm(f) if bnact is None else bnact(f, mode)
 
         self.conv1 = Conv(in_features, features, 1, dtype=dtype,
                           generator=generator)
         self.bn1 = bn(features, "relu")
-        bf16 = dtype == torch.bfloat16
+        bf16 = dtype == torch.bfloat16 and not self.fused
         if winograd_conv2 and stride == 1 and features % 128 == 0 and bf16:
             self.conv2 = WinogradConv3x3(features, dtype, generator)
         elif conv64_pallas and stride == 1 and features == 64 and bf16:
@@ -175,6 +201,8 @@ class Bottleneck(nn.Module):
             self.downsample_conv = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return self._fused_block(x)
         if self.fused_bn:
             y = self.bn2(self.conv2(self.bn1(self.conv1(x))))
             residual = x
@@ -195,9 +223,38 @@ class Bottleneck(nn.Module):
                 x_subset=self.downsample_conv(x[:k]) if shadow else None)
         return F.relu(self.bn3(y, x_subset=y3k) + residual)
 
+    def _fused_block(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.conv1.dtype
+        x = x.to(dt)
+        if self.training:
+            k = stats_rows(x.shape[0], self.stats_fraction,
+                           self.min_stats_samples)
+            y1s = self.conv1(x[:k])
+            a1f, b1f = self.bn1(y1s)
+            y2s = self.conv2(_affine_relu(y1s, a1f, b1f, dt))
+            a2f, b2f = self.bn2(y2s)
+            a3f, b3f = self.bn3(self.conv3(_affine_relu(y2s, a2f, b2f, dt)))
+        else:
+            (a1f, b1f), (a2f, b2f), (a3f, b3f) = (self.bn1(), self.bn2(),
+                                                  self.bn3())
+        if dt == torch.bfloat16 and bottleneck.supports(
+                x, self.conv1.out_channels):
+            return bottleneck.fused_bottleneck(
+                x, self.conv1.weight, self.conv2.weight, self.conv3.weight,
+                (a1f, b1f, a2f, b2f, a3f, b3f))
+        a1 = _affine_relu(self.conv1(x), a1f, b1f, dt)
+        a2 = _affine_relu(self.conv2(a1), a2f, b2f, dt)
+        cs = (1, -1, 1, 1)
+        return F.relu(self.conv3(a2).float() * a3f.view(cs) + b3f.view(cs)
+                      + x.float()).to(dt)
+
 
 class ResNetEncoder(nn.Module):
-    """ResNet trunk producing pooled ``width * 32``-d float32 features."""
+    """ResNet trunk producing pooled ``width * 32``-d float32 features.
+
+    ``fuse_identity_blocks`` fuses every identity block whose width is at
+    least ``fuse_min_width``; as in JAX, it switches ``bn_relu_fused``
+    off."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  width: int = 64, low_quality_img: bool = True,
@@ -212,6 +269,8 @@ class ResNetEncoder(nn.Module):
                  bn_relu_impl: str = "pallas",
                  winograd_conv2: bool = False,
                  conv64_pallas: bool = False,
+                 fuse_identity_blocks: bool = False,
+                 fuse_min_width: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
@@ -224,7 +283,7 @@ class ResNetEncoder(nn.Module):
                 st_surrogate=bn_st_surrogate, fused_vjp=bn_fused_vjp)
 
         bnact = None
-        if bn_relu_fused:
+        if bn_relu_fused and not fuse_identity_blocks:
             def bnact(features, mode):
                 return SubsetBNAct(
                     features, mode=mode, momentum=0.9, eps=1e-5,
@@ -250,7 +309,10 @@ class ResNetEncoder(nn.Module):
                     bn_stats_fraction,
                     shadow_bn3=bn3_shadow_stats and not bn_fused_vjp,
                     bnact=bnact, winograd_conv2=winograd_conv2,
-                    conv64_pallas=conv64_pallas, generator=generator))
+                    conv64_pallas=conv64_pallas,
+                    fused=(fuse_identity_blocks
+                           and features >= fuse_min_width),
+                    generator=generator))
                 self.block_names.append(name)
                 in_features = features * Bottleneck.expansion
         self.out_features = in_features

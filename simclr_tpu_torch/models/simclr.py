@@ -6,11 +6,12 @@ bias-free Linear -> BN (reference: models/simclr.py:27-41).
 
 The default path of ``ModelConfig`` is ported, and with it
 ``bn_relu_fused`` (the block BNs as ``SubsetBNAct``, backward through
-kernel B3), ``bn_fused_vjp``, ``winograd_conv2`` (kernel B5) and
-``conv64_pallas`` (kernel B4); their ``*_interpret`` twins are unused
-(on the CPU the kernel wrappers run their plain versions). A flag that selects another path (the
-fused or folded blocks, the other Pallas-kernel paths, MC dropout, ...)
-raises ``NotImplementedError`` rather than quietly running the default.
+kernel B3), ``bn_fused_vjp``, ``winograd_conv2`` (kernel B5),
+``conv64_pallas`` (kernel B4) and ``fuse_identity_blocks`` with
+``fuse_min_width`` (kernels B6f/B6b); their ``*_interpret`` twins are
+unused (on the CPU the kernel wrappers run their plain versions). A flag
+that selects another path (the folded blocks, MC dropout, ...) raises
+``NotImplementedError`` rather than quietly running the default.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ from simclr_tpu_torch.models.resnet import Linear, ResNetEncoder
 # them off. None counts as off: init_simclr resolves it to False.
 _UNPORTED_OFF = {
     "encoder": "no_dropout",
-    "fuse_identity_blocks": False,
     "fold_bn_scales": False,
     "relu_barrier": False,
     "bn12_shadow_stats": False,
@@ -75,6 +75,8 @@ def _make_encoder(cfg: ModelConfig,
         bn_relu_impl=cfg.bn_relu_impl,
         winograd_conv2=bool(cfg.winograd_conv2),
         conv64_pallas=bool(cfg.conv64_pallas),
+        fuse_identity_blocks=bool(cfg.fuse_identity_blocks),
+        fuse_min_width=cfg.fuse_min_width,
         generator=generator,
     )
 

@@ -45,7 +45,12 @@ SIGNATURES = {
     "winograd_dw_ranges": (_I,) * 5,
     "winograd_fwd": (_P, _P, _P) + (_I,) * 5 + (_P,),
     "winograd_dw": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "bottleneck_bwd_workspace": (_I,) * 4,
+    "bottleneck_fwd": (_P,) * 4 + (_I,) * 4 + (_P,),
+    "bottleneck_bwd": (_P,) * 10 + (_I,) * 4 + (_P,),
 }
+# Entry points that return something other than a CUDA error code.
+RESTYPES = {"bottleneck_bwd_workspace": ctypes.c_longlong}
 
 
 def nvcc_path() -> str:
@@ -108,7 +113,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -38,6 +38,7 @@ def test_every_port_module_imports_without_jax():
     assert "simclr_tpu_torch.ops.subset_bn" in modules
     assert "simclr_tpu_torch.ops.kernels.conv64" in modules
     assert "simclr_tpu_torch.ops.kernels.winograd" in modules
+    assert "simclr_tpu_torch.ops.kernels.bottleneck" in modules
     root = Path(simclr_tpu_torch.__file__).resolve().parents[1]
     result = subprocess.run(
         [sys.executable, "-c", _SCRIPT.format(blocked=BLOCKED,

@@ -171,8 +171,7 @@ def test_training_forward_and_gradients_match_jax(over):
 
 
 def test_unported_flags_raise():
-    for field, value in [("fuse_identity_blocks", True),
-                         ("fold_bn_scales", True), ("bn12_shadow_stats", True),
+    for field, value in [("fold_bn_scales", True), ("bn12_shadow_stats", True),
                          ("relu_from_output", True),
                          ("conv_wgrad_fraction", 0.5),
                          ("encoder", "dropout"), ("remat_stages", (0,))]:
