@@ -35,7 +35,9 @@ Phases, each printed as one line with its result and wall time:
    and at a ragged one each; the autograd functions against autograd of
    their plain forwards; refused operands must raise. Each kernel is
    timed beside its plain version and the cuDNN call that computes the
-   same function (``F.conv2d`` or ``aten.convolution_backward``).
+   same function (``F.conv2d`` or ``aten.convolution_backward``), B5f
+   also as the input gradient beside cuDNN's dx, with each factor over
+   cuDNN at layer2-4.
 10. conv_slice, conv_profile: phases 6 and 7 with
    ``ModelConfig(conv64_pallas=True, winograd_conv2=True)``: layer1's
    three conv2 through B4 (6 B4f, 3 B4w launches a step), the ten other
@@ -65,6 +67,7 @@ the repository. Writes nothing but the kernel build under
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import json
@@ -174,6 +177,16 @@ def build():
             or lib.winograd_dw_ranges(1, 2, 2, winograd.BLOCK // 2,
                                       winograd.BLOCK) != -1):
         raise RuntimeError("winograd BLOCK disagrees with the CUDA source")
+    # The Python mirror of the Winograd kernels' tile blocks (held against
+    # a brute-force enumeration by tests/test_torch_winograd.py) is the C
+    # side's, at the path's shapes and the ragged one.
+    geom = (ctypes.c_int * 6)()
+    for n, _, _, h, w in _B5_SHAPES:
+        for kernel in (0, 1):
+            if (lib.winograd_geometry(n, h, w, kernel, geom) != 0
+                    or tuple(geom) != winograd.tile_blocks(n, h, w, kernel)):
+                raise RuntimeError("winograd tile blocks disagree with the "
+                                   "CUDA source")
     # The C side takes exactly the widths and row lengths supports() does.
     work = lib.bottleneck_bwd_workspace
     if work(1, 1, 1, 32) != 0 or not all(
@@ -706,13 +719,21 @@ def _b5(torch, F, k, rot180_swap, gen, notes):
             lambda: k.winograd_dw_plain(x, g),
             _conv_bwd_library(torch, g, x, w16, [False, True, False]),
             io_bytes + 16 * c * kk * 4, flops)
+        # B5f as the input gradient (the rotated, swapped filter) beside
+        # cuDNN's dx.
+        dx_ms = median_ms(torch, lambda: k.winograd_fwd(g, u_rot))
+        dx_lib = median_ms(torch, _conv_bwd_library(
+            torch, g, x, w16, [True, False, False]))
         notes.append(
             f"B5 at {where}: fwd {t_fwd['ms']:.4f} ms (plain "
             f"{t_fwd['plain_ms']:.4f}, library {t_fwd['library_ms']:.4f}, "
-            f"bound {t_fwd['bound_ms']:.4f} {t_fwd['bound_by']}); dw "
+            f"{t_fwd['ms'] / t_fwd['library_ms']:.2f}x; bound "
+            f"{t_fwd['bound_ms']:.4f} {t_fwd['bound_by']}); dx {dx_ms:.4f} "
+            f"(library {dx_lib:.4f}, {dx_ms / dx_lib:.2f}x); dw "
             f"{t_dw['ms']:.4f} (plain {t_dw['plain_ms']:.4f}, library "
-            f"{t_dw['library_ms']:.4f}, bound {t_dw['bound_ms']:.4f} "
-            f"{t_dw['bound_by']})")
+            f"{t_dw['library_ms']:.4f}, "
+            f"{t_dw['ms'] / t_dw['library_ms']:.2f}x; bound "
+            f"{t_dw['bound_ms']:.4f} {t_dw['bound_by']})")
         if not timing:   # the row: layer2, the path's largest tensors
             timing = {"fwd": t_fwd, "dw": t_dw}
         del x, g
@@ -772,6 +793,11 @@ def conv_phase(torch):
     b4_err, b4 = _b4(torch, F, conv64, gen, notes)
     b5_err, b5 = _b5(torch, F, winograd, conv64.rot180_swap, gen, notes)
     _conv_refusals(torch, conv64, winograd, gen)
+    from simclr_tpu_torch.ops.kernels import _build
+    log = (_build.library_path().parent / "build.log").read_text()
+    for name, frame, usage in _ptxas_usage(log):
+        if name.startswith("winograd"):
+            notes.append(f"ptxas {name}: {usage}; {frame}")
     for line in notes:
         print(f"  {line}")
     b4["fwd"]["max_abs_err"], b4["wgrad"]["max_abs_err"] = (

@@ -1,0 +1,291 @@
+// Hopper (sm_90a) building blocks for warp-specialised kernels: mbarriers,
+// TMA tensor and bulk copies into shared memory, wgmma (warpgroup matrix
+// multiply from shared-memory descriptors) with its fences, an mma.sync
+// with a zero accumulator, and the host-side tensor-map encoder reached
+// through the runtime's driver entry point (so the library needs no
+// -lcuda).
+#pragma once
+
+#include <cstdint>
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include "mma.cuh"
+
+namespace simclr {
+
+// ---------------------------------------------------------------------------
+// mbarrier
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the other threads (and to
+// the asynchronous proxy) before any of them is used.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Arrives and adds `bytes` to the transaction count of the current phase:
+// the phase completes when the arrivals and those bytes are all in.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits for the phase of parity `parity` to complete. A wait that lasts
+// about 2**35 clocks (some 20 seconds) traps, so that a protocol fault
+// ends the kernel with an error instead of hanging the device.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - start > (1LL << 35)) __trap();
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// asynchronous-proxy reads of them (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier over `count` threads (a multiple of 32), id 1-15.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// d = a * b for one m16n8k16 tile (bf16 in, float32 out), the accumulator
+// input a zero register (see mma_bf16 in mma.cuh for the fragments).
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// ---------------------------------------------------------------------------
+// TMA and bulk copies (global -> shared, completion on an mbarrier)
+// ---------------------------------------------------------------------------
+
+// Box of a 4-D tensor map at coordinates (innermost first). Elements
+// outside the tensor arrive as zeros; the barrier counts the whole box.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory, 16-byte aligned.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor with no swizzle ("interleave"): the
+// operand is made of 8 x 8 core matrices of 16-bit elements, each 128
+// contiguous bytes (8 rows of 16 bytes). For a K-major operand `lbo` is
+// the byte distance between core matrices adjacent along K and `sbo`
+// between those adjacent along M or N; for an MN-major one `lbo` steps
+// along K and `sbo` along M or N as well (PTX's naming for this layout).
+__device__ __forceinline__ uint64_t desc_interleave(const void* p,
+                                                    uint32_t lbo,
+                                                    uint32_t sbo) {
+  const uint32_t a = smem_addr(p);
+  return static_cast<uint64_t>((a >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator registers across an
+// asynchronous wgmma (they belong to the tensor core until the wait).
+__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= sa * A * B for a 64 x 64 x 16 bf16 product, float32 accumulate:
+// A (64 x 16) and B (16 x 64) from shared memory through descriptors;
+// TA / TB are 1 for an MN-major operand (M or N contiguous), 0 for
+// K-major; SA is 1 or -1; accumulate is 0 to overwrite d. Thread t of
+// warp w of the warpgroup holds rows 16 w + t / 4 (d[4 j], d[4 j + 1])
+// and 16 w + t / 4 + 8 (d[4 j + 2], d[4 j + 3]) of columns
+// 8 j + 2 (t % 4) and + 1, j = 0..7.
+template <int TA, int TB, int SA = 1>
+__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, %35, 1, %36, %37;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(SA), "n"(TA), "n"(TB));
+}
+
+// The same for a 64 x 128 x 16 product: thread t of warp w holds rows
+// 16 w + t / 4 (d[4 j], d[4 j + 1]) and 16 w + t / 4 + 8 (d[4 j + 2],
+// d[4 j + 3]) of columns 8 j + 2 (t % 4) and + 1, j = 0..15.
+template <int TA, int TB, int SA = 1>
+__device__ __forceinline__ void wgmma_64x128x16(float (&d)[64], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, "
+      "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, %67, 1, %68, %69;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(SA), "n"(TA), "n"(TB));
+}
+
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps
+// ---------------------------------------------------------------------------
+
+using TensorMapEncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, or
+// null where the driver has none.
+inline TensorMapEncodeTiled tensor_map_encoder() {
+  static const TensorMapEncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<TensorMapEncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a bf16 NHWC tensor (N, H, W, C) read in boxes of
+// box = {channels, columns, rows, images}; swizzle_128 stores each box
+// row of 128 bytes with its 16-byte chunks permuted by the row index
+// (CU_TENSOR_MAP_SWIZZLE_128B), otherwise rows are stored as they are.
+// Returns false if the driver refuses the map.
+inline bool nhwc_tensor_map(CUtensorMap* map, const void* base, int n, int h,
+                            int w, int c, const uint32_t (&box)[4],
+                            bool swizzle_128) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(c) * 2, static_cast<cuuint64_t>(w) * c * 2,
+      static_cast<cuuint64_t>(h) * w * c * 2};
+  const cuuint32_t boxdim[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, boxdim, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle_128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace simclr

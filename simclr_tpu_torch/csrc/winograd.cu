@@ -1,6 +1,7 @@
 // Winograd F(2x2, 3x3) convolution (stride 1, SAME) for Hopper (sm_90a):
-// the transforms in float32 registers, the 16 per-position products on
-// the tensor cores (bf16 x bf16 -> float32, mma.sync).
+// warp-specialised kernels that stage their inputs with TMA (and U with
+// bulk copies) through mbarrier rings and multiply on wgmma (bf16 x bf16
+// -> float32).
 //
 // Replaces simclr_tpu/ops/pallas/winograd.py: _fwd_kernel (B5f, launched
 // by the pallas_call in _run_fwd, line 218; also the input gradient, with
@@ -9,103 +10,165 @@
 //
 // Tensors are NHWC bf16 (channels_last in PyTorch); H and W even. A tile
 // is one 2x2 block of outputs and reads the 4x4 input patch around it
-// (zero outside the image). Tiles are numbered in (n, h/2, w/2) order.
+// (zero outside the image). Tiles are grouped into blocks (`Geom`): g
+// whole images, or rb whole tile rows of one image, or cb tiles of one
+// tile row, whichever holds at most 64 (B5f) or 16 (B5w) tiles. A block's
+// input is one TMA box of the NHWC tensor, [channels, 2 cb + 2 columns,
+// 2 rb + 2 rows, g images] from (c, 2 tx0 - 1, 2 ty0 - 1, n0): the box's
+// zero fill outside the tensor is the SAME padding, and every pixel
+// crosses L2 once per block and channel step, not once per patch (at
+// layer2 [c, 18, 18, 1], layer3 [c, 10, 10, 4], layer4 [c, 6, 6, 16]).
 //
-// B5f, winograd_fwd_kernel: a block of 16 warps owns 64 tiles and 64
-// output channels (grid.y) and loops over the input channels 16 at a
-// step, in two stages of shared memory: while one step's products run,
-// the next step's slice of the transformed filter U (16 positions x 64 k
-// x 16 c, bf16) is on its way by cp.async and each thread's next input
-// patch by plain loads; after the products the thread computes that
-// patch's V = B^T d B in float32 (two channels), rounds it to bf16 and
-// stores it. A warp computes each step's M[pos] = V[pos] U[pos] for 16
-// tiles x 16 channels on mma.sync, one column of positions at a time, and
-// at once folds it into its float32 Y = A^T M A accumulators (4 per tile
-// and channel, not 16), so Y sums each step's transform where JAX sums M
-// over all channels first: the same arithmetic in another float32 order.
-// The 2x2 outputs are rounded to bf16 once.
+// What bounds them on the H100: the 16 Winograd products are 34.4 GFLOP
+// at each of the ResNet-50 path's shapes (0.035 ms of bf16 tensor time);
+// layer2's [1024, 128, 16, 16] moves 134 MB (0.040 ms), layer3 and layer4
+// less. A block holds its accumulators in registers, and every region of
+// a kernel has the same 168 registers a thread at 384 threads (ptxas did
+// not allocate past the launch bound where setmaxnreg raised it, and
+// spilled), which shapes both designs.
+//
+// B5f, winograd_fwd_kernel: a block of 384 threads owns 64 tiles x 128
+// output channels and walks the input channels 16 at a step. Warp 0 is
+// the producer (lane 0: x boxes into a ring of 3; lane 1: U entries of 4
+// positions, 16 KB each, into a ring of 4; the wrapper packs U so that an
+// entry is one contiguous copy); warps 1-3 compute V = B^T d B for 16
+// channels of each tile in float32 in the plain version's order, bit for
+// bit, into a ring of 3 stages of 16 V planes; warpgroup 1 + I holds the
+// bf16-to-be outputs Y[I][0] and Y[I][1] (64 tiles x 128 channels each,
+// 128 float32 registers a thread). Rather than keeping M = V U for the 16
+// positions (64 x 128 x 16 float32 a block, twice the register file) or
+// folding each step's M into Y on the CUDA cores (36 adds a tile and
+// channel a step), each position's product goes straight into every Y it
+// feeds, with the output transform's sign as the wgmma A scale: 36
+// m64n128k16 products a step instead of 16, 77 GFLOP a pass (the direct
+// convolution's count, 0.078 ms of tensor time), in one asynchronous
+// stream per warpgroup with no per-position wait. Y thus sums each
+// position and step in another float32 order than JAX, which sums M over
+// all channels first. The epilogue rounds Y to bf16 once, stages it in
+// shared memory and writes 16-byte vectors. V serves 128 output channels;
+// U crosses L2 once per block of 64 tiles (512 MB a pass).
 //
 // B5w, winograd_dw_kernel: dU[pos] = sum over tiles of V[pos]^T dM[pos],
 // V from x as above and dM = the adjoint of the output transform applied
 // to the 2x2 patches of the cotangent, both rounded to bf16 (as the JAX
-// kernel rounds them). A block of 16 warps owns 32 c x 64 k of all 16
-// positions (grid.x, grid.y) and one range of tiles (grid.z), 32 tiles a
-// step. With more than one
-// range each block writes a float32 partial and winograd_dw_reduce sums
-// them over the ranges in a fixed order (no atomics: dU is the same from
-// run to run). dw = G^T dU G runs outside, in PyTorch, as JAX keeps it
-// outside Pallas.
+// kernel rounds them). A block of 384 threads owns 64 c x 64 k of 8
+// positions (one half of the 4x4, grid.z) and one range of tile blocks,
+// 16 tiles a stage. Warp 0 is the producer (x box of 64 channels with the
+// 128-byte swizzle, and the g box, into a ring of 4); warps 1-3 compute dM
+// in float32; the 8 consumer warps compute V on the tensor cores
+// (mma.sync against the constant 16 x 16 matrix B^T (x) B^T: products
+// exact, the 4 terms summed in float32 in the tensor core's order, so a V
+// entry can round to the other bf16 neighbour of the plain version's in
+// rare cases), then warpgroup 1 + wq multiplies its 4 positions (A = V^T
+// and B = dM, both MN-major from their [tile][channel] planes) from a
+// ring of 3 operand stages. With more than one range each block writes a
+// float32 partial and winograd_dw_reduce sums them over the ranges in a
+// fixed order (no atomics: dU is the same from run to run). The ranges
+// fill the SMs once: 16, 4 and 1 at layers 2-4 on 132 SMs, so the
+// partials are 16.8 MB at layer2 and layer3 and none at layer4. dw =
+// G^T dU G runs outside, in PyTorch, as JAX keeps it outside Pallas.
 //
-// What bounds it on the H100: the 16 products do 2.25x fewer operations
-// than the direct 3x3 convolution, 34.4 GFLOP a pass at each of the
-// ResNet-50 path's shapes (0.035 ms of bf16 tensor time); layer2's
-// [1024, 128, 16, 16] moves 134 MB (0.040 ms, bytes), layer3 and layer4
-// less (operations). These simple designs recompute V once for every 64
-// output channels and re-read U (B5f) or the cotangent (B5w) once for
-// every block of tiles or input channels, from L2, and run mma.sync
-// rather than wgmma; they sit well above that bound.
-//
-// Shared-memory planes hold one position: B5w's 32 rows of 32 bf16 (64
-// bytes; chunk c of row r at chunk c ^ ((r / 2) % 4)), B5f's 64 rows of
-// 16 bf16 (32 bytes; chunk c ^ ((r / 4) % 2)), so ldmatrix reads 8 rows
-// without bank conflicts.
+// Operand planes use wgmma's no-swizzle layout: 8 x 8 core matrices of
+// 128 contiguous bytes, padded so that the warps' 4-byte stores (8
+// positions, or 8 channel groups, a warp store) hit distinct banks. (The
+// 32-byte-swizzle layout ran B5f slower on the card.)
 
-#include "mma.cuh"
+#include <algorithm>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
-using simclr::cp_async16;
-using simclr::cp_async_commit;
-using simclr::cp_async_wait;
-using simclr::ldsm_x2_t;
-using simclr::ldsm_x4;
+using simclr::bulk_load;
+using simclr::desc_interleave;
+using simclr::fence_operands;
+using simclr::fence_proxy_async;
 using simclr::ldsm_x4_t;
-using simclr::mma_bf16;
+using simclr::mbar_arrive;
+using simclr::mbar_expect_tx;
+using simclr::mbar_fence_init;
+using simclr::mbar_init;
+using simclr::mbar_wait;
+using simclr::mma_bf16_zero;
+using simclr::named_barrier;
 using simclr::smem_addr;
-using simclr::store_bf16x2;
+using simclr::tma_load_4d;
+using simclr::tma_prefetch_map;
+using simclr::wgmma_64x128x16;
+using simclr::wgmma_64x64x16;
+using simclr::wgmma_commit;
+using simclr::wgmma_fence;
+using simclr::wgmma_wait;
 
-constexpr int POS = 16;               // 4x4 transform positions
-constexpr int CH = 32;                // C and K are multiples of this
-// B5w's blocking: 32 c x 64 k of all 16 positions a block of 16 warps,
-// 32 tiles a step.
-constexpr int W_THREADS = 512;
-constexpr int W_BT = 32;
-constexpr int W_BC = 32;
-constexpr int W_BK = 64;
-constexpr int W_VPLANE = W_BT * W_BC * 2;    // [tile][c] bf16, 64-byte rows
-constexpr int W_DPLANE = W_BT * W_BK * 2;    // [tile][k] bf16, 128-byte rows
-constexpr int W_SMEM = POS * (W_VPLANE + W_DPLANE);
-constexpr int DW_TARGET_BLOCKS = 264;   // 2 waves over 132 SMs
+constexpr int POS = 16;   // 4x4 transform positions
+constexpr int CH = 32;    // C and K are multiples of this
+constexpr int CC = 16;    // channels of a TMA box (32 bytes a pixel)
 
-// 64-byte rows: chunk c of row r at chunk c ^ ((r / 2) % 4).
-__device__ __forceinline__ int vswz(int row, int chunk) {
-  return row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4);
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ---------------------------------------------------------------------------
+// Tile blocks
+// ---------------------------------------------------------------------------
+
+// A block of at most bt tiles: g whole images (an image has at most bt
+// tiles), else rb whole tile rows of one image (a row has at most bt),
+// else cb = bt tiles of one tile row; its input box, with the one-pixel
+// halo, holds at most max_px pixels. Blocks are numbered
+// (image group, row band, column band), the last fastest.
+struct Geom {
+  int g, rb, cb;   // extent of a block: images, tile rows, tile columns
+  int ng, nr, nc;  // blocks along each
+};
+
+Geom geometry(int n, int h, int w, int bt, int max_px) {
+  const int th = h / 2, tw = w / 2;
+  Geom q;
+  if (th * tw <= bt) {
+    q.rb = th;
+    q.cb = tw;
+    q.g = std::min(bt / (th * tw), max_px / ((h + 2) * (w + 2)));
+    q.g = std::max(1, std::min(q.g, n));
+  } else if (tw <= bt) {
+    q.g = 1;
+    q.cb = tw;
+    q.rb = std::min(bt / tw, max_px / (w + 2) / 2 - 1);
+    q.rb = std::max(1, std::min(q.rb, th));
+  } else {
+    q.g = 1;
+    q.rb = 1;
+    q.cb = bt;
+  }
+  q.ng = cdiv(n, q.g);
+  q.nr = cdiv(th, q.rb);
+  q.nc = cdiv(tw, q.cb);
+  return q;
 }
 
-// 128-byte rows: chunk c of row r at chunk c ^ (r % 8).
-__device__ __forceinline__ int dswz(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
+struct Block {
+  int n0, ty0, tx0;  // first image, tile row, tile column
+  int bw, bh;        // box columns and rows (with the halo)
+  int rect;          // tiles in the block's rectangle, g * rb * cb
+};
+
+__device__ __forceinline__ Block block_of(const Geom& q, int b) {
+  Block k;
+  const int bc = b % q.nc, br = (b / q.nc) % q.nr, bg = b / (q.nc * q.nr);
+  k.n0 = bg * q.g;
+  k.ty0 = br * q.rb;
+  k.tx0 = bc * q.cb;
+  k.bw = 2 * q.cb + 2;
+  k.bh = 2 * q.rb + 2;
+  k.rect = q.g * q.rb * q.cb;
+  return k;
 }
 
-// Image and tile row/column of tile t. Indices fit in int: the wrappers
-// refuse tensors of 2**31 elements or more.
-__device__ __forceinline__ void tile_of(int t, int h, int w, int& img,
-                                        int& ty, int& tx) {
-  const int per = (h / 2) * (w / 2);
-  img = t / per;
-  const int rem = t - img * per;
-  ty = rem / (w / 2);
-  tx = rem - ty * (w / 2);
-}
-
-// Offset of channel c of pixel (img, y, x) in an NHWC tensor.
-__device__ __forceinline__ long long at(int img, int y, int x, int h, int w,
-                                        int channels, int c) {
-  return static_cast<long long>((img * h + y) * w + x) * channels + c;
-}
-
-__device__ __forceinline__ float2 unpack(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+// Local tile l of a block -> image, tile row and column within the box.
+__device__ __forceinline__ void local_tile(const Geom& q, int l, int& gi,
+                                           int& ri, int& ci) {
+  ci = l % q.cb;
+  ri = (l / q.cb) % q.rb;
+  gi = l / (q.cb * q.rb);
 }
 
 __device__ __forceinline__ uint32_t pack(float a, float b) {
@@ -113,29 +176,68 @@ __device__ __forceinline__ uint32_t pack(float a, float b) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The 4x4 input patch of tile t, channels c and c + 1 (packed bf16x2),
-// zero outside the image and for t >= end.
-__device__ __forceinline__ void load_patch(const __nv_bfloat16* __restrict__ x,
-                                           int t, int end, int c, int cin,
-                                           int h, int w,
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+__device__ __forceinline__ void st32(unsigned char* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+
+// ---------------------------------------------------------------------------
+// Input transform
+// ---------------------------------------------------------------------------
+
+// Row r of B^T: h_r = (d0 - d2, d1 + d2, d2 - d1, d1 - d3)[r].
+__host__ __device__ constexpr float bt_coef(int r, int i) {
+  return r == 0   ? (i == 0 ? 1.f : i == 2 ? -1.f : 0.f)
+         : r == 1 ? (i == 1 || i == 2 ? 1.f : 0.f)
+         : r == 2 ? (i == 2 ? 1.f : i == 1 ? -1.f : 0.f)
+                  : (i == 1 ? 1.f : i == 3 ? -1.f : 0.f);
+}
+
+// This lane's A fragment of the 16 x 16 matrix T[p][e] = B^T[p/4][e/4] *
+// B^T[p%4][e%4] (position p = 4 k + l, patch element e = 4 i + j), so
+// that V = T d over a tile's 16 patch elements, for mma.sync.
+__device__ __forceinline__ void transform_fragment(int lane,
+                                                   uint32_t (&a)[4]) {
+  const int g = lane >> 2, c = (lane & 3) * 2;
+  auto t = [](int p, int e) {
+    return bt_coef(p >> 2, e >> 2) * bt_coef(p & 3, e & 3);
+  };
+  a[0] = pack(t(g, c), t(g, c + 1));
+  a[1] = pack(t(g + 8, c), t(g + 8, c + 1));
+  a[2] = pack(t(g, c + 8), t(g, c + 9));
+  a[3] = pack(t(g + 8, c + 8), t(g + 8, c + 9));
+}
+
+// This lane's ldmatrix row: patch element e (row i, column j) and channel
+// half, for matrices (e 0-7 | 8-15) x (channels 0-7 | 8-15).
+__device__ __forceinline__ void lane_element(int lane, int& i, int& j,
+                                             int& chalf) {
+  const int m = lane >> 3, e = (m & 1) * 8 + (lane & 7);
+  i = e >> 2;
+  j = e & 3;
+  chalf = m >> 1;
+}
+
+// V = B^T d B of one tile and two channels in float32, in the plain
+// version's order (h_k over the patch rows, then the same over the
+// columns of h_k), each entry rounded once to bf16: bit for bit the plain
+// version's V. load_patch reads the patch of channel pair `pair` whose
+// corner is box pixel p00 (bw pixels a box row); v[4 k + l] packs the
+// pair at position (k, l).
+__device__ __forceinline__ void load_patch(const unsigned char* box, int p00,
+                                           int bw, int pair,
                                            uint32_t (&d)[4][4]) {
-  int img = 0, ty = 0, tx = 0;
-  if (t < end) tile_of(t, h, w, img, ty, tx);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int hh = 2 * ty - 1 + i, ww = 2 * tx - 1 + j;
-      d[i][j] = 0u;
-      if (t < end && hh >= 0 && hh < h && ww >= 0 && ww < w)
-        d[i][j] = *reinterpret_cast<const uint32_t*>(
-            x + at(img, hh, ww, h, w, cin, c));
-    }
+    for (int j = 0; j < 4; ++j)
+      d[i][j] = *reinterpret_cast<const uint32_t*>(
+          box + (p00 + i * bw + j) * (CC * 2) + pair * 4);
 }
 
-// v[4k + l] = bf16(V[k][l]) of a patch, two channels packed, in float32:
-//   h_k = (d0 - d2, d1 + d2, d2 - d1, d1 - d3) over the patch's rows,
-//   V[k][l] = the same over the columns of h_k.
 __device__ __forceinline__ void patch_transform(const uint32_t (&d)[4][4],
                                                 uint32_t (&v)[POS]) {
 #pragma unroll
@@ -157,272 +259,564 @@ __device__ __forceinline__ void patch_transform(const uint32_t (&d)[4][4],
   }
 }
 
-// s_v[pos][r][c] = bf16(V[pos]) of tile t0 + r, channels c0 + c, for the
-// 32 tiles of a B5w step (zero for tiles >= end), two channels a thread.
-__device__ __forceinline__ void input_transform(
-    const __nv_bfloat16* __restrict__ x, unsigned char* s_v, int t0,
-    int end, int c0, int cin, int h, int w, int tid) {
-  const int cp = tid & 15, r = tid >> 4;
-  uint32_t d[4][4], v[POS];
-  load_patch(x, t0 + r, end, c0 + 2 * cp, cin, h, w, d);
-  patch_transform(d, v);
-  const int off = vswz(r, cp >> 2) + (cp & 3) * 4;
+// V of two 16-channel units (unit = 4 tile + channel block) of B5w's
+// 64-channel x box (128-byte rows with the 128-byte swizzle) on the tensor
+// cores, both ldmatrix first; stores the block's half PH of the
+// positions (rows lane / 4 + 8 PH of the transform) into the V planes
+// (plane lane / 4, [tile / 8][c / 8][tile % 8][c % 8], planes `vplane`
+// bytes apart). tab[l] is the box pixel of tile l's patch corner, -1
+// past the block's rectangle (stores zeros); lane_px this lane's offset
+// in the patch.
+template <int PH>
+__device__ __forceinline__ void v_units(const unsigned char* xs,
+                                        unsigned char* vs, const int* tab,
+                                        const int (&unit)[2],
+                                        const uint32_t (&a)[4], int lane_px,
+                                        int chalf, int lane, int vplane) {
+  uint32_t r[2][4];
+  int corner[2];
 #pragma unroll
-  for (int pos = 0; pos < POS; ++pos)
-    *reinterpret_cast<uint32_t*>(s_v + pos * W_VPLANE + off) = v[pos];
-}
-
-// s_d[pos][r][k] = bf16(dM[pos]) of tile t0 + r, channels k0 + k (zero
-// for k >= kout): with adj(a0, a1) = (a0, a0 + a1, a0 - a1, -a1),
-// h0 = adj(g00, g10), h1 = adj(g01, g11) and
-// dM[4 k4 + l] = adj(h0[k4], h1[k4])[l], where g_ij is the cotangent at
-// (2 ty + i, 2 tx + j).
-__device__ __forceinline__ void dm_transform(
-    const __nv_bfloat16* __restrict__ g, unsigned char* s_d, int t0,
-    int end, int k0, int kout, int h, int w, int tid) {
-  const int kp = tid & 31;
-  for (int r = tid >> 5; r < W_BT; r += W_THREADS / 32) {
-    const int t = t0 + r;
-    float2 y[2][2] = {{{0.f, 0.f}, {0.f, 0.f}}, {{0.f, 0.f}, {0.f, 0.f}}};
-    if (t < end && k0 + 2 * kp < kout) {
-      int img, ty, tx;
-      tile_of(t, h, w, img, ty, tx);
+  for (int t = 0; t < 2; ++t) {
+    corner[t] = tab[unit[t] >> 2];
+    const int px = max(corner[t], 0) + lane_px;
+    ldsm_x4_t(smem_addr(xs + px * 128 +
+                        (((2 * (unit[t] & 3) + chalf) ^ (px & 7)) << 4)),
+              r[t]);
+  }
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          y[i][j] = unpack(*reinterpret_cast<const uint32_t*>(
-              g + at(img, 2 * ty + i, 2 * tx + j, h, w, kout, k0 + 2 * kp)));
-    }
-    const float2 h0[4] = {
-        y[0][0], make_float2(y[0][0].x + y[1][0].x, y[0][0].y + y[1][0].y),
-        make_float2(y[0][0].x - y[1][0].x, y[0][0].y - y[1][0].y),
-        make_float2(-y[1][0].x, -y[1][0].y)};
-    const float2 h1[4] = {
-        y[0][1], make_float2(y[0][1].x + y[1][1].x, y[0][1].y + y[1][1].y),
-        make_float2(y[0][1].x - y[1][1].x, y[0][1].y - y[1][1].y),
-        make_float2(-y[1][1].x, -y[1][1].y)};
-    const int off = dswz(r, kp >> 2) + (kp & 3) * 4;
-#pragma unroll
-    for (int k4 = 0; k4 < 4; ++k4) {
-      const float2 a = h0[k4], b = h1[k4];
-      unsigned char* p = s_d + 4 * k4 * W_DPLANE + off;
-      *reinterpret_cast<uint32_t*>(p) = pack(a.x, a.y);
-      *reinterpret_cast<uint32_t*>(p + W_DPLANE) =
-          pack(a.x + b.x, a.y + b.y);
-      *reinterpret_cast<uint32_t*>(p + 2 * W_DPLANE) =
-          pack(a.x - b.x, a.y - b.y);
-      *reinterpret_cast<uint32_t*>(p + 3 * W_DPLANE) = pack(-b.x, -b.y);
-    }
+  for (int t = 0; t < 2; ++t) {
+    float d0[4], d1[4];
+    mma_bf16_zero(d0, a, r[t][0], r[t][1]);
+    mma_bf16_zero(d1, a, r[t][2], r[t][3]);
+    const int l = unit[t] >> 2, m = 2 * (unit[t] & 3);
+    unsigned char* dst = vs + (lane >> 2) * vplane + (l >> 3) * 1024 +
+                         (l & 7) * 16 + (lane & 3) * 4 + m * 128;
+    st32(dst, corner[t] >= 0 ? pack(d0[2 * PH], d0[2 * PH + 1]) : 0u);
+    st32(dst + 128, corner[t] >= 0 ? pack(d1[2 * PH], d1[2 * PH + 1]) : 0u);
   }
 }
 
-// B5f's blocking: 64 tiles x 64 output channels a block of 16 warps,
-// input channels 16 a step, two stages of V and U in shared memory.
-constexpr int F_THREADS = 512;
-constexpr int F_BT = 64;
-constexpr int F_BK = 64;
-constexpr int F_BC = 16;
-constexpr int F_ROWB = F_BC * 2;               // bytes of a row of 16 bf16
-constexpr int F_PLANE = 64 * F_ROWB;           // one position's 64 rows
-constexpr int F_STAGE = 2 * POS * F_PLANE;     // V, then U
-constexpr int F_SMEM = 2 * F_STAGE;
+// ---------------------------------------------------------------------------
+// B5f
+// ---------------------------------------------------------------------------
 
-// 32-byte rows: chunk c of row r at chunk c ^ ((r / 4) % 2).
-__device__ __forceinline__ int fswz(int row, int chunk) {
-  return row * F_ROWB + ((chunk ^ ((row >> 2) & 1)) << 4);
+constexpr int F_THREADS = 384;
+constexpr int F_XFORM = 3;                     // transform warps 1-3
+constexpr int F_BT = 64;                       // tiles a block
+constexpr int F_BK = 128;                      // output channels a block
+constexpr int F_MAXPX = 576;                   // box pixels
+constexpr int F_XBYTES = F_MAXPX * CC * 2;     // 18432
+// Operand planes in wgmma's no-swizzle K-major layout: 8 x 8 core
+// matrices [row / 8][channel / 8][row % 8][channel % 8] of 128 bytes, rows
+// the tiles of V or the output channels of U; V planes padded by 16 bytes
+// so that a warp store (8 positions) hits distinct banks.
+constexpr int F_VPLANE = F_BT * CC * 2 + 16;   // 2064
+constexpr int F_VBYTES = POS * F_VPLANE;       // 33024
+constexpr int F_UPLANE = F_BK * CC * 2;        // 4096
+constexpr int F_UPOS = 4;                      // positions of a U entry
+constexpr int F_STAGES = 3;
+constexpr int F_UENTRIES = 4;
+constexpr int F_UENTRY = F_UPOS * F_UPLANE;
+constexpr int F_UGROUPS = POS / F_UPOS;        // entries (groups) a step
+constexpr int F_XSLOTS = 3;
+constexpr int F_X0 = 0;
+constexpr int F_V0 = F_X0 + F_XSLOTS * F_XBYTES;
+constexpr int F_U0 = (F_V0 + F_STAGES * F_VBYTES + 1023) / 1024 * 1024;
+constexpr int F_BAR = F_U0 + F_UENTRIES * F_UENTRY;
+constexpr int F_TAB = F_BAR + 256;             // int[64]
+constexpr int F_SMEM = F_TAB + F_BT * 4;
+constexpr int F_YROW = 4 * F_BK * 2 + 16;      // a tile's staged outputs
+static_assert(F_BT * F_YROW <= F_U0, "staging overlaps the U ring");
+static_assert(F_SMEM <= 232448, "B5f shared memory");
+
+// A^T of the output transform: y_i = sum over r of A^T[i][r] m_r, A^T =
+// ((1, 1, 1, 0), (0, 1, -1, -1)).
+__host__ __device__ constexpr int at_coef(int i, int r) {
+  return i == 0 ? (r < 3 ? 1 : 0) : (r == 0 ? 0 : r == 1 ? 1 : -1);
+}
+
+// Consumer warpgroup of output row I: y[j] += A^T[I][r] A^T[j][q] V_p U_p
+// for every position p = 4 r + q, straight into the two Y planes (64
+// tiles x 128 k each) on wgmma with the sign as the A operand's scale.
+// One commit group per U entry (a row of 4 positions); the group before
+// is waited for and its U entry (and, after a step's last group, its V
+// stage) released, so the tensor core always has the next group queued.
+template <int I>
+__device__ __forceinline__ void fwd_consume(unsigned char* smem,
+                                            uint64_t* vfull, uint64_t* vempty,
+                                            uint64_t* ufull, uint64_t* uempty,
+                                            int steps, int lane,
+                                            float (&y)[2][64]) {
+  // No instruction but wgmma touches y between the fences below: an
+  // operand fence inside the loop would make ptxas serialise the wgmmas.
+  fence_operands(y[0]);
+  fence_operands(y[1]);
+  wgmma_fence();
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % F_STAGES;
+    mbar_wait(&vfull[s], (i / F_STAGES) & 1);
+    const uint64_t vdesc =
+        desc_interleave(smem + F_V0 + s * F_VBYTES, 128, 256);
+#pragma unroll
+    for (int gr = 0; gr < F_UGROUPS; ++gr) {
+      // Group j: the positions of U entry j % F_UENTRIES, whole rows of
+      // the 4x4. A plane's start address is the descriptor's low field
+      // (16-byte units); shared memory stays below 2**18 bytes, so adding
+      // the plane offset never carries out of it.
+      const int j = F_UGROUPS * i + gr, e = j % F_UENTRIES;
+      mbar_wait(&ufull[e], (j / F_UENTRIES) & 1);
+      const uint64_t udesc =
+          desc_interleave(smem + F_U0 + e * F_UENTRY, 128, 256);
+#pragma unroll
+      for (int pp = 0; pp < F_UPOS; ++pp) {
+        const int p = F_UPOS * gr + pp, ar = at_coef(I, p >> 2);
+        if (ar == 0) continue;
+        const uint64_t da = vdesc + p * (F_VPLANE >> 4);
+        const uint64_t db = udesc + pp * (F_UPLANE >> 4);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int sign = ar * at_coef(jj, p & 3);
+          if (sign == 1) wgmma_64x128x16<0, 0, 1>(y[jj], da, db, 1);
+          if (sign == -1) wgmma_64x128x16<0, 0, -1>(y[jj], da, db, 1);
+        }
+      }
+      wgmma_commit();
+      // The group before this one is done: release its U entry and, after
+      // a step's last group, its V stage.
+      wgmma_wait<1>();
+      if (j > 0) {
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(&uempty[(j - 1) % F_UENTRIES]);
+          if (gr == 0) mbar_arrive(&vempty[(i - 1) % F_STAGES]);
+        }
+      }
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(y[0]);
+  fence_operands(y[1]);
 }
 
 __global__ void __launch_bounds__(F_THREADS, 1)
-winograd_fwd_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ u,  // [16][K][C]
-                    __nv_bfloat16* __restrict__ y, int n, int h, int w,
-                    int cin, int kout) {
-  extern __shared__ __align__(128) unsigned char smem[];
+winograd_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const unsigned char* __restrict__ upk,
+                    __nv_bfloat16* __restrict__ y, Geom q, int n, int h,
+                    int w, int cin, int kout) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + F_BAR);
+  uint64_t* xfull = bar;         // [3] an x box has landed
+  uint64_t* xempty = bar + 3;    // [3] the transform warps have read it
+  uint64_t* vfull = bar + 6;     // [F_STAGES] the transform warps wrote V
+  uint64_t* vempty = bar + 9;    // [F_STAGES] the consumers are done
+  uint64_t* ufull = bar + 12;    // [F_UENTRIES] a U entry has landed
+  uint64_t* uempty = bar + 16;   // [F_UENTRIES] the consumers are done
+  int* tab = reinterpret_cast<int*>(smem + F_TAB);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;   // 16 tiles x 16 k a warp
-  const int tiles = n * (h / 2) * (w / 2);
-  const int t0 = blockIdx.x * F_BT, k0 = blockIdx.y * F_BK;
-  const int steps = cin / F_BC;
-  const int cp = tid & 7, r = tid >> 3;      // V of tile t0 + r, 2 channels
+  const int steps = cin / CC, kb = blockIdx.y;
+  const Block blk = block_of(q, blockIdx.x);
 
-  auto copy_u = [&](int s) {
-    unsigned char* s_u = smem + (s & 1) * F_STAGE + POS * F_PLANE;
-    for (int i = tid; i < POS * F_BK * 2; i += F_THREADS) {
-      const int pos = i / (F_BK * 2), row = (i >> 1) % F_BK, ch = i & 1;
-      const bool ok = k0 + row < kout;
-      cp_async16(smem_addr(s_u + pos * F_PLANE + fswz(row, ch)),
-                 ok ? u + (static_cast<long long>(pos) * kout + k0 + row) *
-                              cin + s * F_BC + ch * 8
-                    : u,
-                 ok);
+  if (tid == 0) {
+    for (int s = 0; s < F_XSLOTS; ++s) {
+      mbar_init(&xfull[s], 1);
+      mbar_init(&xempty[s], F_XFORM);
     }
-    cp_async_commit();
-  };
-  auto store_v = [&](int s, const uint32_t (&d)[4][4]) {
-    uint32_t v[POS];
-    patch_transform(d, v);
-    unsigned char* s_v = smem + (s & 1) * F_STAGE;
-    const int off = fswz(r, cp >> 2) + (cp & 3) * 4;
-#pragma unroll
-    for (int pos = 0; pos < POS; ++pos)
-      *reinterpret_cast<uint32_t*>(s_v + pos * F_PLANE + off) = v[pos];
-  };
-
-  // Y accumulators: [n8 tile][fragment element][2 i + j].
-  float yacc[2][4][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int o = 0; o < 4; ++o) yacc[a][e][o] = 0.f;
-
-  uint32_t d[4][4];
-  copy_u(0);
-  load_patch(x, t0 + r, tiles, 2 * cp, cin, h, w, d);
-  store_v(0, d);
-  for (int s = 0; s < steps; ++s) {
-    // The next step's filter slice and input patch are in flight while
-    // this step's products run.
-    const bool more = s + 1 < steps;
-    if (more) {
-      copy_u(s + 1);
-      load_patch(x, t0 + r, tiles, (s + 1) * F_BC + 2 * cp, cin, h, w, d);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(&vfull[s], F_XFORM);
+      mbar_init(&vempty[s], 8);
     }
-    __syncthreads();
-    const unsigned char* s_v = smem + (s & 1) * F_STAGE;
-    const unsigned char* s_u = s_v + POS * F_PLANE;
-    // This step's M = V U of column l of the positions, then its part of
-    // the output transform: u_i = (m0 + m1 + m2, m1 - m2 - m3) over the
-    // rows, added to y_i0 for l < 3 and to y_i1 with sign (0, +, -, -)[l].
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      float m[4][2][4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int pos = 4 * k + l;
-        uint32_t av[4], bv[4];
-        ldsm_x4(smem_addr(s_v + pos * F_PLANE +
-                          fswz(wm * 16 + (lane & 15), lane >> 4)),
-                av);
-        ldsm_x4(smem_addr(s_u + pos * F_PLANE +
-                          fswz(wn * 16 + (lane & 7) + ((lane >> 4) << 3),
-                               (lane >> 3) & 1)),
-                bv);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) m[k][nt][e] = 0.f;
-        mma_bf16(m[k][0], av, bv[0], bv[1]);
-        mma_bf16(m[k][1], av, bv[2], bv[3]);
+    for (int e = 0; e < F_UENTRIES; ++e) {
+      mbar_init(&ufull[e], 1);
+      mbar_init(&uempty[e], 8);
+    }
+    mbar_fence_init();
+  }
+  // tab[l]: box pixel of the corner of local tile l's patch, -1 past the
+  // block's rectangle.
+  if (tid < F_BT) {
+    int corner = -1;
+    if (tid < blk.rect) {
+      int gi, ri, ci;
+      local_tile(q, tid, gi, ri, ci);
+      corner = (gi * blk.bh + 2 * ri) * blk.bw + 2 * ci;
+    }
+    tab[tid] = corner;
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // Producers: lane 0 streams the x boxes, lane 1 the U entries, each
+    // running ahead as far as its own ring allows.
+    if (lane == 0) {
+      tma_prefetch_map(&xmap);
+      const uint32_t xbytes = CC * 2 * blk.bw * blk.bh * q.g;
+      for (int i = 0; i < steps; ++i) {
+        const int xs = i % F_XSLOTS;
+        mbar_wait(&xempty[xs], ((i / F_XSLOTS) & 1) ^ 1);
+        mbar_expect_tx(&xfull[xs], xbytes);
+        tma_load_4d(smem + F_X0 + xs * F_XBYTES, &xmap, &xfull[xs], i * CC,
+                    2 * blk.tx0 - 1, 2 * blk.ty0 - 1, blk.n0);
       }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float u0 = m[0][nt][e] + m[1][nt][e] + m[2][nt][e];
-          const float u1 = m[1][nt][e] - m[2][nt][e] - m[3][nt][e];
-          if (l < 3) {
-            yacc[nt][e][0] += u0;
-            yacc[nt][e][2] += u1;
-          }
-          if (l == 1) {
-            yacc[nt][e][1] += u0;
-            yacc[nt][e][3] += u1;
-          }
-          if (l >= 2) {
-            yacc[nt][e][1] -= u0;
-            yacc[nt][e][3] -= u1;
-          }
-        }
+    } else if (lane == 1) {
+      const unsigned char* ublk =
+          upk + static_cast<long long>(kb) * steps * POS * F_UPLANE;
+      for (int j = 0; j < F_UGROUPS * steps; ++j) {
+        const int e = j % F_UENTRIES;
+        mbar_wait(&uempty[e], ((j / F_UENTRIES) & 1) ^ 1);
+        mbar_expect_tx(&ufull[e], F_UENTRY);
+        bulk_load(smem + F_U0 + e * F_UENTRY,
+                  ublk + static_cast<long long>(j) * F_UENTRY, F_UENTRY,
+                  &ufull[e]);
+      }
     }
-    if (more) store_v(s + 1, d);
-    __syncthreads();
+    return;
+  }
+  if (warp <= F_XFORM) {
+    // Transform warps 1-3: item = (tile, channel pair), 4 tiles x 8
+    // pairs a warp instruction.
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % F_STAGES, slot = i % F_XSLOTS;
+      mbar_wait(&xfull[slot], (i / F_XSLOTS) & 1);
+      mbar_wait(&vempty[s], ((i / F_STAGES) & 1) ^ 1);
+      const unsigned char* xs = smem + F_X0 + slot * F_XBYTES;
+      unsigned char* vs = smem + F_V0 + s * F_VBYTES;
+      // Two items an iteration, (tile, pair) and (tile + 28, pair): all
+      // loads first, so that their latencies overlap. A tile past the
+      // rectangle reads the first patch and stores zeros.
+      for (int item = tid - 32; item < F_BT * (CC / 2);
+           item += 64 * F_XFORM) {
+        const int l0 = item >> 3, l1 = l0 + 4 * F_XFORM, pair = item & 7;
+        const bool two = l1 < F_BT;
+        const int c0 = tab[l0], c1 = two ? tab[l1] : -1;
+        uint32_t d0[4][4], d1[4][4];
+        load_patch(xs, max(c0, 0), blk.bw, pair, d0);
+        load_patch(xs, max(c1, 0), blk.bw, pair, d1);
+        uint32_t v0[POS], v1[POS];
+        patch_transform(d0, v0);
+        patch_transform(d1, v1);
+        // Plane p: [tile / 8][channel / 8][tile % 8][channel % 8].
+        const int col = (pair >> 2) * 128 + (pair & 3) * 4;
+        unsigned char* row0 = vs + (l0 >> 3) * 256 + (l0 & 7) * 16 + col;
+        unsigned char* row1 = vs + (l1 >> 3) * 256 + (l1 & 7) * 16 + col;
+#pragma unroll
+        for (int p = 0; p < POS; ++p) {
+          st32(row0 + p * F_VPLANE, c0 >= 0 ? v0[p] : 0u);
+          if (two) st32(row1 + p * F_VPLANE, c1 >= 0 ? v1[p] : 0u);
+        }
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&xempty[slot]);
+        mbar_arrive(&vfull[s]);
+      }
+    }
+    return;
   }
 
+  // Consumers: warpgroup 1 + I holds Y planes (I, 0) and (I, 1) of the
+  // block's 64 tiles x 128 output channels; thread rows 16 (warp % 4) +
+  // lane / 4 (+ 8) are tiles.
+  const int wi = (warp >> 2) - 1;
+  float acc[2][64];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = t0 + wm * 16 + (lane >> 2) + half * 8;
-    if (t >= tiles) continue;
-    int img, ty, tx;
-    tile_of(t, h, w, img, ty, tx);
+  for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int k = k0 + wn * 16 + nt * 8 + (lane & 3) * 2;
-      if (k >= kout) continue;
+    for (int e = 0; e < 64; ++e) acc[jj][e] = 0.f;
+  if (wi == 0)
+    fwd_consume<0>(smem, vfull, vempty, ufull, uempty, steps, lane, acc);
+  else
+    fwd_consume<1>(smem, vfull, vempty, ufull, uempty, steps, lane, acc);
+
+  // Epilogue: bf16 Y staged as [tile][pixel][128 k] (rows padded by 16
+  // bytes), then 16-byte stores of each output pixel's channels.
+  named_barrier(1, 256);   // both warpgroups are past their last wgmma
+  const int g8 = lane >> 2, c4 = lane & 3, wr = 16 * (warp & 3);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+  for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          store_bf16x2(y + at(img, 2 * ty + i, 2 * tx + j, h, w, kout, k),
-                       yacc[nt][2 * half][2 * i + j],
-                       yacc[nt][2 * half + 1][2 * i + j]);
-    }
+    for (int j8 = 0; j8 < 16; ++j8)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int l = wr + g8 + 8 * half, k = 8 * j8 + 2 * c4;
+        st32(smem + l * F_YROW + (2 * wi + jj) * F_BK * 2 + k * 2,
+             pack(acc[jj][4 * j8 + 2 * half],
+                  acc[jj][4 * j8 + 2 * half + 1]));
+      }
+  named_barrier(1, 256);
+  const int th = h / 2, tw = w / 2, kblk = kb * F_BK;
+  for (int idx = tid - 128; idx < F_BT * 4 * (F_BK / 8); idx += 256) {
+    const int l = idx / (4 * (F_BK / 8)), o = (idx / (F_BK / 8)) & 3,
+              ch = idx % (F_BK / 8);
+    if (l >= blk.rect || kblk + 8 * ch >= kout) continue;
+    int gi, ri, ci;
+    local_tile(q, l, gi, ri, ci);
+    const int img = blk.n0 + gi, ty = blk.ty0 + ri, tx = blk.tx0 + ci;
+    if (img >= n || ty >= th || tx >= tw) continue;
+    const long long pix =
+        (static_cast<long long>(img) * h + 2 * ty + (o >> 1)) * w + 2 * tx +
+        (o & 1);
+    *reinterpret_cast<uint4*>(y + pix * kout + kblk + 8 * ch) =
+        *reinterpret_cast<const uint4*>(smem + l * F_YROW + o * F_BK * 2 +
+                                        ch * 16);
   }
 }
 
-// dU (or one range's partial) [16][C][K] float32 of 32 c x 64 k.
+// ---------------------------------------------------------------------------
+// B5w
+// ---------------------------------------------------------------------------
+
+constexpr int W_THREADS = 384;
+constexpr int W_XFORM = 3;                     // transform warps 1-3
+constexpr int W_BT = 16;                       // tiles a stage
+constexpr int W_BC = 64;
+constexpr int W_BK = 64;
+constexpr int W_MAXPX = 144;
+// Input ring: the x box (64 channels, 128-byte rows with their 16-byte
+// chunks permuted by the row, CU_TENSOR_MAP_SWIZZLE_128B) and the g box
+// (64 channels, plain rows).
+constexpr int W_XBYTES = W_MAXPX * W_BC * 2;   // 18432
+constexpr int W_GBYTES = W_BT * 4 * W_BK * 2;  // 8192
+constexpr int W_IN = W_XBYTES + W_GBYTES;      // 26 x 1024
+constexpr int W_INSLOTS = 4;
+// Operand ring, wgmma's no-swizzle MN-major layout: 8 x 8 core matrices
+// [tile / 8][channel / 8][tile % 8][channel % 8] of 128 bytes. V planes:
+// core matrices 128 bytes apart, each plane padded by 16 bytes (a warp
+// store covers 8 positions); dM planes: core matrices 144 bytes apart (a
+// warp store covers 8 channel groups).
+constexpr int W_VPLANE = 2 * 8 * 128 + 16;     // 2064
+constexpr int W_VBYTES = 8 * W_VPLANE;         // 16512
+constexpr int W_DCORE = 144;
+constexpr int W_DPLANE = 2 * 8 * W_DCORE;      // 2304
+constexpr int W_DBYTES = 8 * W_DPLANE;         // 18432
+constexpr int W_OP = (W_VBYTES + W_DBYTES + 127) / 128 * 128;
+constexpr int W_OPSLOTS = 3;
+constexpr int W_OP0 = W_INSLOTS * W_IN;
+constexpr int W_BAR = W_OP0 + W_OPSLOTS * W_OP;
+constexpr int W_TAB = W_BAR + 128;             // int[2][16]
+constexpr int W_SMEM = W_TAB + 2 * W_BT * 4;
+static_assert(W_IN % 1024 == 0, "swizzled x boxes need 1024-byte slots");
+static_assert(W_SMEM <= 232448, "B5w shared memory");
+
+// (a0, a0 + a1, a0 - a1, -a1)[r]: one axis of the adjoint of the output
+// transform.
+__device__ __forceinline__ float2 adj(float2 a0, float2 a1, int r) {
+  return r == 0   ? a0
+         : r == 1 ? make_float2(a0.x + a1.x, a0.y + a1.y)
+         : r == 2 ? make_float2(a0.x - a1.x, a0.y - a1.y)
+                  : make_float2(-a1.x, -a1.y);
+}
+
+// dU (or one range's partial) [16][C][K] float32 of 64 c x 64 k, 8
+// positions (8 ph .. 8 ph + 7, ph = blockIdx.z % 2).
 __global__ void __launch_bounds__(W_THREADS, 1)
-winograd_dw_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ g,
-                   float* __restrict__ out, int n, int h, int w, int cin,
-                   int kout, int per_range) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* s_v = smem;
-  unsigned char* s_d = smem + POS * W_VPLANE;
+winograd_dw_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap gmap,
+                   float* __restrict__ out, Geom q, int blocks, int per_range,
+                   int cin, int kout) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + W_BAR);
+  uint64_t* infull = bar;        // [4] x and g boxes have landed
+  uint64_t* inempty = bar + 4;   // [4] transform and dM are done reading
+  uint64_t* dfull = bar + 8;     // [3] the transform warps wrote dM
+  uint64_t* opempty = bar + 11;  // [3] the consumers' products are done
+  int* xtab = reinterpret_cast<int*>(smem + W_TAB);
+  int* gtab = xtab + W_BT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1, wn = warp >> 1;   // 16 c x 8 k a warp
   const int c0 = blockIdx.x * W_BC, k0 = blockIdx.y * W_BK;
-  const int tiles = n * (h / 2) * (w / 2);
-  const int begin = blockIdx.z * per_range;
-  const int end = begin + per_range < tiles ? begin + per_range : tiles;
+  const int ph = blockIdx.z & 1, range = blockIdx.z >> 1;
+  const int begin = range * per_range;
+  const int count = max(0, min(blocks, begin + per_range) - begin);
+  const int bw = 2 * q.cb + 2, bh = 2 * q.rb + 2;
 
-  float acc[POS][4];
-#pragma unroll
-  for (int p = 0; p < POS; ++p)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[p][e] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < W_INSLOTS; ++s) {
+      mbar_init(&infull[s], 1);
+      mbar_init(&inempty[s], W_XFORM + 8);
+    }
+    for (int s = 0; s < W_OPSLOTS; ++s) {
+      mbar_init(&dfull[s], W_XFORM);
+      mbar_init(&opempty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  // Box pixels of local tile l (the same in every block of the launch):
+  // xtab the corner of its x patch, gtab its first cotangent pixel; -1
+  // past the block's rectangle.
+  if (tid < W_BT) {
+    int xc = -1, gc = -1;
+    if (tid < q.g * q.rb * q.cb) {
+      int gi, ri, ci;
+      local_tile(q, tid, gi, ri, ci);
+      xc = (gi * bh + 2 * ri) * bw + 2 * ci;
+      gc = (gi * 2 * q.rb + 2 * ri) * 2 * q.cb + 2 * ci;
+    }
+    xtab[tid] = xc;
+    gtab[tid] = gc;
+  }
+  __syncthreads();
 
-  for (int t0 = begin; t0 < end; t0 += W_BT) {
-    input_transform(x, s_v, t0, end, c0, cin, h, w, tid);
-    dm_transform(g, s_d, t0, end, k0, kout, h, w, tid);
-    __syncthreads();
+  if (warp == 0) {
+    // Producer: one thread issues every copy.
+    if (lane != 0) return;
+    tma_prefetch_map(&xmap);
+    tma_prefetch_map(&gmap);
+    const uint32_t bytes =
+        W_BC * 2 * bw * bh * q.g + W_BK * 2 * 4 * q.rb * q.cb * q.g;
+    for (int it = 0; it < count; ++it) {
+      const int s = it % W_INSLOTS;
+      const Block blk = block_of(q, begin + it);
+      mbar_wait(&inempty[s], ((it / W_INSLOTS) & 1) ^ 1);
+      unsigned char* in = smem + s * W_IN;
+      mbar_expect_tx(&infull[s], bytes);
+      tma_load_4d(in, &xmap, &infull[s], c0, 2 * blk.tx0 - 1,
+                  2 * blk.ty0 - 1, blk.n0);
+      tma_load_4d(in + W_XBYTES, &gmap, &infull[s], k0, 2 * blk.tx0,
+                  2 * blk.ty0, blk.n0);
+    }
+    return;
+  }
+  if (warp <= W_XFORM) {
+    // Transform warps 1-3: dM of this block's 8 positions (rows 2 PH and
+    // 2 PH + 1 of the 4x4, PH known at compile time) in float32, lane =
+    // output-channel pair, a tile an iteration.
+    const int gw = 2 * q.cb;
+    auto dm = [&](auto half) {
+      constexpr int PH = decltype(half)::value;
+      for (int it = 0; it < count; ++it) {
+        const int s = it % W_INSLOTS, o = it % W_OPSLOTS;
+        mbar_wait(&infull[s], (it / W_INSLOTS) & 1);
+        mbar_wait(&opempty[o], ((it / W_OPSLOTS) & 1) ^ 1);
+        const unsigned char* gs = smem + s * W_IN + W_XBYTES;
+        unsigned char* ds = smem + W_OP0 + o * W_OP + W_VBYTES;
+        // A tile past the rectangle reads the first pixel and stores
+        // zeros.
+        for (int l = warp - 1; l < W_BT; l += W_XFORM) {
+          const int gc = gtab[l];
+          const unsigned char* px = gs + max(gc, 0) * (W_BK * 2) + lane * 4;
+          const float2 y00 = unpack(*reinterpret_cast<const uint32_t*>(px));
+          const float2 y10 = unpack(
+              *reinterpret_cast<const uint32_t*>(px + gw * (W_BK * 2)));
+          const float2 y01 =
+              unpack(*reinterpret_cast<const uint32_t*>(px + W_BK * 2));
+          const float2 y11 = unpack(*reinterpret_cast<const uint32_t*>(
+              px + (gw + 1) * (W_BK * 2)));
+          unsigned char* dst = ds + (l >> 3) * (8 * W_DCORE) +
+                               (lane >> 2) * W_DCORE + (l & 7) * 16 +
+                               (lane & 3) * 4;
 #pragma unroll
-    for (int ks = 0; ks < W_BT / 16; ++ks)
+          for (int kk = 0; kk < 2; ++kk) {
+            // h = adj(y_0j, y_1j)[k4] per column j, dM = adj(h0, h1).
+            const float2 h0 = adj(y00, y10, 2 * PH + kk);
+            const float2 h1 = adj(y01, y11, 2 * PH + kk);
 #pragma unroll
-      for (int pos = 0; pos < POS; ++pos) {
-        uint32_t a[4], b[2];
-        // A = V^T (c x tiles), B = dM (tiles x k): both transposed from
-        // their [tile][channel] planes.
-        ldsm_x4_t(smem_addr(s_v + pos * W_VPLANE +
-                            vswz(ks * 16 + ((lane >> 4) << 3) + (lane & 7),
-                                 wm * 2 + ((lane >> 3) & 1))),
-                  a);
-        ldsm_x2_t(smem_addr(s_d + pos * W_DPLANE +
-                            dswz(ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
-                                 wn)),
-                  b);
-        mma_bf16(acc[pos], a, b[0], b[1]);
+            for (int c = 0; c < 4; ++c) {
+              const float2 d = adj(h0, h1, c);
+              st32(dst + (4 * kk + c) * W_DPLANE,
+                   gc >= 0 ? pack(d.x, d.y) : 0u);
+            }
+          }
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(&inempty[s]);
+          mbar_arrive(&dfull[o]);
+        }
       }
-    __syncthreads();
+    };
+    if (ph)
+      dm(std::integral_constant<int, 1>());
+    else
+      dm(std::integral_constant<int, 0>());
+    return;
   }
 
-  const int k = k0 + wn * 8 + (lane & 3) * 2;
-  if (k >= kout) return;
-  float* dst = out + static_cast<long long>(blockIdx.z) * POS * cin * kout;
+  // Consumers: all 8 warps compute V (two tiles a warp, on the tensor
+  // cores); then warpgroup 1 + wq multiplies positions 4 wq .. 4 wq + 3 of
+  // the 8 (one row of the 4x4) on wgmma.
+  const int wq = (warp >> 2) - 1, cw = warp - 4;
+  uint32_t a[4];
+  transform_fragment(lane, a);
+  int pi, pj, chalf;
+  lane_element(lane, pi, pj, chalf);
+  const int lane_px = pi * bw + pj;
+  float acc[4][32];
 #pragma unroll
-  for (int pos = 0; pos < POS; ++pos)
+  for (int p = 0; p < 4; ++p)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = c0 + wm * 16 + (lane >> 2) + half * 8;
-      *reinterpret_cast<float2*>(
-          dst + (static_cast<long long>(pos) * cin + c) * kout + k) =
-          make_float2(acc[pos][2 * half], acc[pos][2 * half + 1]);
+    for (int e = 0; e < 32; ++e) acc[p][e] = 0.f;
+  // No instruction but wgmma touches acc inside the loop (see fwd_consume).
+#pragma unroll
+  for (int p = 0; p < 4; ++p) fence_operands(acc[p]);
+  wgmma_fence();
+  // The loop, for the half PH known at compile time.
+  auto consume = [&](auto half) {
+    constexpr int PH = decltype(half)::value;
+    for (int it = 0; it < count; ++it) {
+      const int s = it % W_INSLOTS, o = it % W_OPSLOTS;
+      mbar_wait(&infull[s], (it / W_INSLOTS) & 1);
+      const unsigned char* xs = smem + s * W_IN;
+      unsigned char* vs = smem + W_OP0 + o * W_OP;
+      const unsigned char* ds = vs + W_VBYTES;
+      // V of tiles 2 cw and 2 cw + 1 (units 8 cw .. 8 cw + 7, unit = 4
+      // tile + 16-channel block), two units at a time. This slot was last
+      // read by products of stage it - 3, which both warpgroups waited for
+      // before the barrier of stage it - 1.
+#pragma unroll
+      for (int m = 0; m < 8; m += 2) {
+        const int unit[2] = {8 * cw + m, 8 * cw + m + 1};
+        v_units<PH>(xs, vs, xtab, unit, a, lane_px, chalf, lane, W_VPLANE);
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&inempty[s]);
+      named_barrier(1, 256);   // V of all 16 tiles is written
+      mbar_wait(&dfull[o], (it / W_OPSLOTS) & 1);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int pp = 4 * wq + p;
+        wgmma_64x64x16<1, 1>(
+            acc[p], desc_interleave(vs + pp * W_VPLANE, 1024, 128),
+            desc_interleave(ds + pp * W_DPLANE, 8 * W_DCORE, W_DCORE), 1);
+      }
+      wgmma_commit();
+      // Release the previous stage's operands once its products are done.
+      wgmma_wait<1>();
+      if (it > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&opempty[(it - 1) % W_OPSLOTS]);
+      }
     }
+  };
+  if (ph)
+    consume(std::integral_constant<int, 1>());
+  else
+    consume(std::integral_constant<int, 0>());
+  wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < 4; ++p) fence_operands(acc[p]);
+
+  float* dst = out + static_cast<long long>(range) * POS * cin * kout;
+  const int g8 = lane >> 2, c4 = lane & 3, wr = 16 * (warp & 3);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int pos = 8 * ph + 4 * wq + p;
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8) {
+      const int k = k0 + 8 * j8 + 2 * c4;
+      if (k >= kout) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = c0 + wr + g8 + 8 * half;
+        if (c >= cin) continue;
+        *reinterpret_cast<float2*>(
+            dst + (static_cast<long long>(pos) * cin + c) * kout + k) =
+            make_float2(acc[p][4 * j8 + 2 * half],
+                        acc[p][4 * j8 + 2 * half + 1]);
+      }
+    }
+  }
 }
 
 // out[j] = sum over ranges, in order, of partial[range][j].
@@ -444,7 +838,18 @@ bool shape_ok(int n, int h, int w, int cin, int kout) {
          pixels * cin < (1LL << 31) && pixels * kout < (1LL << 31);
 }
 
-int tile_count(int n, int h, int w) { return n * (h / 2) * (w / 2); }
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms < 1)
+    return 132;
+  return sms;
+}
 
 simclr::SmemOptIn fwd_smem;
 simclr::SmemOptIn dw_smem;
@@ -453,30 +858,53 @@ simclr::SmemOptIn dw_smem;
 
 extern "C" {
 
+
+// The tile blocks of kernel 0 (B5f) or 1 (B5w) at this shape, as
+// out = {g, rb, cb, ng, nr, nc}; 0, or -1 for a shape the kernels refuse.
+int winograd_geometry(int n, int h, int w, int kernel, int* out) {
+  if (!shape_ok(n, h, w, CH, CH) || (kernel != 0 && kernel != 1)) return -1;
+  const Geom q = kernel == 0 ? geometry(n, h, w, F_BT, F_MAXPX)
+                             : geometry(n, h, w, W_BT, W_MAXPX);
+  const int v[6] = {q.g, q.rb, q.cb, q.ng, q.nr, q.nc};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+
 // Tile ranges winograd_dw splits the batch into (its partial buffer holds
 // that many [16][C][K] float32 slices when it is above 1), or -1.
 int winograd_dw_ranges(int n, int h, int w, int cin, int kout) {
   if (!shape_ok(n, h, w, cin, kout)) return -1;
-  const int blocks = (cin / W_BC) * ((kout + W_BK - 1) / W_BK);
-  const int steps = (tile_count(n, h, w) + W_BT - 1) / W_BT;
-  const int ranges = (DW_TARGET_BLOCKS + blocks - 1) / blocks;
-  return ranges < steps ? ranges : steps;
+  const Geom q = geometry(n, h, w, W_BT, W_MAXPX);
+  const int blocks = q.ng * q.nr * q.nc;
+  const int per_range = cdiv(cin, W_BC) * cdiv(kout, W_BK) * 2;
+  const int ranges = std::max(1, sm_count() / per_range);
+  return std::min(ranges, blocks);
 }
 
-// y = conv3x3(x, w) through U = transform of w as [16][K][C] bf16; x NHWC
-// (N, H, W, C) bf16, y NHWC (N, H, W, K) bf16.
+// y = conv3x3(x, w) through U = transform of w, packed by the wrapper as
+// [K / 128][C / 16][16 positions][k % 128][16 c] bf16, K padded with zeros
+// to a multiple of 128 and the two 16-byte halves of row k swapped where
+// (k / 4) % 2 is 1 (wgmma's 32-byte swizzle); x NHWC (N, H, W, C) bf16, y
+// NHWC (N, H, W, K) bf16.
 int winograd_fwd(const void* x, const void* u, void* y, int n, int h, int w,
                  int cin, int kout, void* stream) {
-  if (!shape_ok(n, h, w, cin, kout)) return cudaErrorInvalidValue;
+  if (!shape_ok(n, h, w, cin, kout) || !aligned16(x) || !aligned16(u) ||
+      !aligned16(y))
+    return cudaErrorInvalidValue;
+  const Geom q = geometry(n, h, w, F_BT, F_MAXPX);
+  CUtensorMap xmap;
+  const uint32_t box[4] = {CC, static_cast<uint32_t>(2 * q.cb + 2),
+                           static_cast<uint32_t>(2 * q.rb + 2),
+                           static_cast<uint32_t>(q.g)};
+  if (!simclr::nhwc_tensor_map(&xmap, x, n, h, w, cin, box, false))
+    return cudaErrorInvalidValue;
   cudaError_t err = fwd_smem(winograd_fwd_kernel, F_SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((tile_count(n, h, w) + F_BT - 1) / F_BT,
-                  (kout + F_BK - 1) / F_BK);
+  const dim3 grid(q.ng * q.nr * q.nc, cdiv(kout, F_BK));
   winograd_fwd_kernel<<<grid, F_THREADS, F_SMEM,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(u), static_cast<__nv_bfloat16*>(y),
-      n, h, w, cin, kout);
+      xmap, static_cast<const unsigned char*>(u),
+      static_cast<__nv_bfloat16*>(y), q, n, h, w, cin, kout);
   return cudaGetLastError();
 }
 
@@ -486,18 +914,29 @@ int winograd_fwd(const void* x, const void* u, void* y, int n, int h, int w,
 int winograd_dw(const void* x, const void* g, void* partial, void* du, int n,
                 int h, int w, int cin, int kout, void* stream) {
   const int ranges = winograd_dw_ranges(n, h, w, cin, kout);
-  if (ranges < 1) return cudaErrorInvalidValue;
+  if (ranges < 1 || !aligned16(x) || !aligned16(g))
+    return cudaErrorInvalidValue;
+  const Geom q = geometry(n, h, w, W_BT, W_MAXPX);
+  CUtensorMap xmap, gmap;
+  const uint32_t xbox[4] = {W_BC, static_cast<uint32_t>(2 * q.cb + 2),
+                            static_cast<uint32_t>(2 * q.rb + 2),
+                            static_cast<uint32_t>(q.g)};
+  const uint32_t gbox[4] = {W_BK, static_cast<uint32_t>(2 * q.cb),
+                            static_cast<uint32_t>(2 * q.rb),
+                            static_cast<uint32_t>(q.g)};
+  if (!simclr::nhwc_tensor_map(&xmap, x, n, h, w, cin, xbox, true) ||
+      !simclr::nhwc_tensor_map(&gmap, g, n, h, w, kout, gbox, false))
+    return cudaErrorInvalidValue;
   cudaError_t err = dw_smem(winograd_dw_kernel, W_SMEM);
   if (err != cudaSuccess) return err;
-  const int steps = (tile_count(n, h, w) + W_BT - 1) / W_BT;
-  const int per = (steps + ranges - 1) / ranges * W_BT;
+  const int blocks = q.ng * q.nr * q.nc;
+  const int per_range = cdiv(blocks, ranges);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dst = ranges > 1 ? static_cast<float*>(partial)
                           : static_cast<float*>(du);
-  const dim3 grid(cin / W_BC, (kout + W_BK - 1) / W_BK, ranges);
+  const dim3 grid(cdiv(cin, W_BC), cdiv(kout, W_BK), 2 * ranges);
   winograd_dw_kernel<<<grid, W_THREADS, W_SMEM, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(g), dst, n, h, w, cin, kout, per);
+      xmap, gmap, dst, q, blocks, per_range, cin, kout);
   err = cudaGetLastError();
   if (err != cudaSuccess || ranges == 1) return err;
   const long long count = static_cast<long long>(POS) * cin * kout;

@@ -42,6 +42,7 @@ SIGNATURES = {
     "conv64_wgrad_chunks": (),
     "conv64_fwd": (_P, _P, _P, _I, _I, _I, _P),
     "conv64_wgrad": (_P,) * 4 + (_I, _I, _I, _P),
+    "winograd_geometry": (_I,) * 4 + (_P,),
     "winograd_dw_ranges": (_I,) * 5,
     "winograd_fwd": (_P, _P, _P) + (_I,) * 5 + (_P,),
     "winograd_dw": (_P,) * 4 + (_I,) * 5 + (_P,),

@@ -42,6 +42,13 @@ from simclr_tpu_torch.ops.kernels.conv64 import nhwc_operand, rot180_swap
 # and A^T are written out in the transforms below.
 _G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
 BLOCK = 32   # C and K are multiples of this (csrc/winograd.cu CH)
+# B5f's blocking (csrc/winograd.cu): output channels a block (F_BK) and
+# input channels a step (CC); U is packed to match.
+FWD_K = 128
+FWD_C = 16
+# Tiles a block and pixels of its input box, B5f then B5w (F_BT, F_MAXPX;
+# W_BT, W_MAXPX).
+TILE_BLOCKS = ((64, 576), (16, 144))
 
 
 def supported(x_shape, w_shape, stride) -> bool:
@@ -70,6 +77,55 @@ def filter_grad(du: torch.Tensor) -> torch.Tensor:
     g = _gmat(du.device)
     c, k = du.shape[1:]
     return torch.einsum("ar,bs,abck->kcrs", g, g, du.reshape(4, 4, c, k))
+
+
+def pack_u(u: torch.Tensor) -> torch.Tensor:
+    """U (16, C, K) as B5f reads it: [K / 128][C / 16][16 positions]
+    [k / 8][c / 8][k % 8][c % 8], K padded with zeros to a multiple of 128:
+    each block's row of positions is one contiguous copy of 8 x 8 core
+    matrices, wgmma's no-swizzle K-major layout."""
+    _, c, k = u.shape
+    kp = -(-k // FWD_K) * FWD_K
+    u = F.pad(u, (0, kp - k))
+    return u.reshape(16, c // FWD_C, 2, 8, kp // FWD_K, FWD_K // 8,
+                     8).permute(4, 1, 0, 5, 2, 6, 3).contiguous()
+
+
+def unpack_u(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """The inverse of ``pack_u``: (16, C, K)."""
+    kb, cs = packed.shape[:2]
+    return packed.permute(2, 1, 4, 6, 0, 3, 5).reshape(
+        16, cs * FWD_C, kb * FWD_K)[:, :, :k]
+
+
+def tile_blocks(n: int, h: int, w: int, kernel: int) -> tuple:
+    """The kernels' tile blocks (csrc/winograd.cu ``geometry``), kernel 0
+    for B5f and 1 for B5w: (g, rb, cb, ng, nr, nc). A block is g whole
+    images, or rb whole tile rows of one image, or cb tiles of one tile
+    row, with at most ``TILE_BLOCKS[kernel][0]`` tiles; its input box,
+    [2 cb + 2 columns, 2 rb + 2 rows, g images], holds at most
+    ``TILE_BLOCKS[kernel][1]`` pixels; (ng, nr, nc) blocks cover the
+    batch."""
+    bt, max_px = TILE_BLOCKS[kernel]
+    th, tw = h // 2, w // 2
+    if th * tw <= bt:
+        rb, cb = th, tw
+        g = max(1, min(bt // (th * tw), max_px // ((h + 2) * (w + 2)), n))
+    elif tw <= bt:
+        g, cb = 1, tw
+        rb = max(1, min(bt // tw, max_px // (w + 2) // 2 - 1, th))
+    else:
+        g, rb, cb = 1, 1, bt
+    return g, rb, cb, -(-n // g), -(-th // rb), -(-tw // cb)
+
+
+def block_tiles(geom: tuple, b: int) -> list:
+    """(image, tile row, tile column) of the rectangle of block b, in the
+    kernels' local order; some may lie outside the batch or the image."""
+    g, rb, cb, _, nr, nc = geom
+    n0, ty0, tx0 = b // (nr * nc) * g, b // nc % nr * rb, b % nc * cb
+    return [(n0 + gi, ty0 + ri, tx0 + ci)
+            for gi in range(g) for ri in range(rb) for ci in range(cb)]
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +228,7 @@ def winograd_fwd(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if tuple(u.shape) != (16, c, k):
         raise ValueError(f"u must be (16, {c}, K), got {tuple(u.shape)}")
     xs = nhwc_operand(x)
-    ut = u.transpose(1, 2).contiguous()   # the kernel reads [16][K][C]
+    ut = pack_u(u)
     y = torch.empty((n, k, h, w), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     with torch.cuda.device(x.device):
