@@ -7,7 +7,10 @@ Phases, each printed as one line with its result and wall time:
 
 1. env: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc.
 2. build: compile the kernels from ``simclr_tpu_torch/csrc`` (nvcc,
-   one process per source, started together).
+   one process per source, started together); hold the Python mirrors of
+   the kernels' constants and tilings (Winograd tile blocks, the C = 64
+   conv's tiles and row items) against the C side; print each kernel's
+   ptxas registers, shared memory and spills and any nvcc warning.
 3. ntxent: kernel B1 forward and backward against their plain versions
    at 2N in {1024, 2048, 200}, D = 128, float32 (TF32 off on both sides).
 4. color: kernel B2 against its plain version at 512 CIFAR-sized images
@@ -32,12 +35,13 @@ Phases, each printed as one line with its result and wall time:
 9. conv: kernels B4f/B4w (layer1's C = 64 conv: forward, input and
    weight gradient) and B5f/B5w (Winograd F(2x2,3x3): forward/input
    gradient and dU) against their plain versions at the path's shapes
-   and at a ragged one each; the autograd functions against autograd of
+   and at ragged ones (B4: W = 7, W = 17 and W = 300, which takes five
+   column tiles); the autograd functions against autograd of
    their plain forwards; refused operands must raise. Each kernel is
    timed beside its plain version and the cuDNN call that computes the
-   same function (``F.conv2d`` or ``aten.convolution_backward``), B5f
-   also as the input gradient beside cuDNN's dx, with each factor over
-   cuDNN at layer2-4.
+   same function (``F.conv2d`` or ``aten.convolution_backward``), B4f
+   and B5f also as the input gradient beside cuDNN's dx, with each factor
+   over cuDNN at layer1 (B4) and layer2-4 (B5).
 10. conv_slice, conv_profile: phases 6 and 7 with
    ``ModelConfig(conv64_pallas=True, winograd_conv2=True)``: layer1's
    three conv2 through B4 (6 B4f, 3 B4w launches a step), the ten other
@@ -163,7 +167,7 @@ def env(torch):
 @phase("build")
 def build():
     from simclr_tpu_torch.ops.kernels import (
-        _build, bn_relu, bottleneck, color, ntxent, winograd)
+        _build, bn_relu, bottleneck, color, conv64, ntxent, winograd)
     lib_path = _build.build()
     lib = _build.library()
     if lib.ntxent_max_dim() != ntxent.MAX_DIM:
@@ -187,6 +191,20 @@ def build():
                     or tuple(geom) != winograd.tile_blocks(n, h, w, kernel)):
                 raise RuntimeError("winograd tile blocks disagree with the "
                                    "CUDA source")
+    # The same for the C = 64 conv kernels' tiles and row items (held
+    # against a brute-force enumeration by tests/test_torch_conv64.py);
+    # B4w's pixel ranges fill the SMs once.
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, h, w in _B4_SHAPES:
+        for kernel in (0, 1):
+            want = conv64.geometry(n, h, w, kernel)
+            if (lib.conv64_geometry(n, h, w, kernel, geom) != 0
+                    or tuple(geom)[:5] != want
+                    or geom[5] != min(want[4], sms)
+                    or len(conv64.tile_boxes(n, h, w, kernel)) != want[4]):
+                raise RuntimeError("conv64 tiles disagree with the CUDA "
+                                   "source")
     # The C side takes exactly the widths and row lengths supports() does.
     work = lib.bottleneck_bwd_workspace
     if work(1, 1, 1, 32) != 0 or not all(
@@ -198,6 +216,9 @@ def build():
     log = (lib_path.parent / "build.log").read_text()
     for name, frame, usage in _ptxas_usage(log):
         print(f"  ptxas: {name}: {usage}; {frame}")
+    for line in log.splitlines():
+        if "warning" in line:
+            print(f"  nvcc: {line.strip()}")
     return {"summary": f"{lib_path.relative_to(lib_path.parents[2])}"}
 
 
@@ -562,8 +583,10 @@ def bn_relu_phase(torch):
 
 
 # B4 comparisons: (N, H, W) at C = 64. The first is layer1 at batch 512
-# (2N = 1,024 images); the ragged one has a partial last tile and H != W.
-_B4_SHAPES = ((1024, 32, 32), (3, 5, 7))
+# (2N = 1,024 images); the ragged ones have partial tiles and H != W, W
+# below 8, W above 8 and not a multiple of 8, and W above 256 (five
+# column tiles, each with its own halo).
+_B4_SHAPES = ((1024, 32, 32), (3, 5, 7), (2, 3, 300), (5, 9, 17))
 # B5 comparisons: (N, C, K, H, W). The first three are the path's
 # stride-1 conv2 of layer2, layer3 and layer4; the ragged one has an odd
 # batch, C != K, H != W and a partial last block of tiles.
@@ -662,11 +685,17 @@ def _b4(torch, F, k, gen, notes):
         dx_ms = median_ms(torch, lambda: k.conv_c64(g, rot))
         dx_lib = median_ms(torch, _conv_bwd_library(
             torch, g, x, w16, [True, False, False]))
-        notes.append(f"B4 at {where}: fwd {timing['fwd']['ms']:.4f} ms "
-                     f"(library {timing['fwd']['library_ms']:.4f}), dx "
-                     f"{dx_ms:.4f} (library {dx_lib:.4f}), wgrad "
-                     f"{timing['wgrad']['ms']:.4f} (library "
-                     f"{timing['wgrad']['library_ms']:.4f})")
+        t_fwd, t_wg = timing["fwd"], timing["wgrad"]
+        notes.append(
+            f"B4 at {where}: fwd {t_fwd['ms']:.4f} ms (plain "
+            f"{t_fwd['plain_ms']:.4f}, library {t_fwd['library_ms']:.4f}, "
+            f"{t_fwd['ms'] / t_fwd['library_ms']:.2f}x; bound "
+            f"{t_fwd['bound_ms']:.4f} {t_fwd['bound_by']}); dx {dx_ms:.4f} "
+            f"(library {dx_lib:.4f}, {dx_ms / dx_lib:.2f}x); wgrad "
+            f"{t_wg['ms']:.4f} (plain {t_wg['plain_ms']:.4f}, library "
+            f"{t_wg['library_ms']:.4f}, "
+            f"{t_wg['ms'] / t_wg['library_ms']:.2f}x; bound "
+            f"{t_wg['bound_ms']:.4f} {t_wg['bound_by']})")
         del x, g
     # The autograd function against autograd of the plain forward: y, dx
     # within one bf16 ulp; dW within one ulp too (the plain path rounds
@@ -796,7 +825,7 @@ def conv_phase(torch):
     from simclr_tpu_torch.ops.kernels import _build
     log = (_build.library_path().parent / "build.log").read_text()
     for name, frame, usage in _ptxas_usage(log):
-        if name.startswith("winograd"):
+        if name.startswith(("conv64", "winograd")):
             notes.append(f"ptxas {name}: {usage}; {frame}")
     for line in notes:
         print(f"  {line}")

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks for warp-specialised kernels: mbarriers,
 // TMA tensor and bulk copies into shared memory, wgmma (warpgroup matrix
-// multiply from shared-memory descriptors) with its fences, an mma.sync
-// with a zero accumulator, and the host-side tensor-map encoder reached
-// through the runtime's driver entry point (so the library needs no
-// -lcuda).
+// multiply from shared-memory descriptors, no-swizzle and 128-byte
+// swizzle) with its fences, transposed stmatrix, an mma.sync with a zero
+// accumulator, and the host-side tensor-map encoder, found through the
+// CUDA runtime's entry-point query (so the library needs no -lcuda).
 #pragma once
 
 #include <cstdint>
@@ -96,7 +96,8 @@ __device__ __forceinline__ void mma_bf16_zero(float (&d)[4],
 }
 
 // ---------------------------------------------------------------------------
-// TMA and bulk copies (global -> shared, completion on an mbarrier)
+// TMA and bulk copies (global -> shared, completion on an mbarrier; and
+// shared -> global, completion in bulk groups)
 // ---------------------------------------------------------------------------
 
 // Box of a 4-D tensor map at coordinates (innermost first). Elements
@@ -117,6 +118,37 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// Box of a 4-D tensor map from shared memory, the inverse of tma_load_4d:
+// elements outside the tensor are not written. The copy joins this
+// thread's bulk group (bulk_commit, bulk_wait_read).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their
+// shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // `bytes` (a multiple of 16) of contiguous global memory, 16-byte aligned.
@@ -148,6 +180,20 @@ __device__ __forceinline__ uint64_t desc_interleave(const void* p,
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
 }
 
+// Shared-memory matrix descriptor with the 128-byte swizzle (layout type
+// 1, bits 62-63), as a CU_TENSOR_MAP_SWIZZLE_128B box is stored: rows of
+// 128 bytes whose 16-byte chunk c sits at chunk c ^ (row % 8), in atoms of
+// 8 rows (1024 bytes, which must be 1024-byte aligned in shared memory).
+// K-major (rows along M or N, 64 K elements a row): `sbo` is the byte
+// distance between atoms along M or N, `lbo` is unused, and a K step of 16
+// moves the start by 32 bytes. MN-major (rows along K, 64 M or N elements
+// a row): `lbo` is the byte distance between atoms along M or N (for N
+// above 64) and `sbo` between atoms along K.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return desc_interleave(p, lbo, sbo) | (1ULL << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -163,9 +209,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keeps the compiler from moving accumulator registers across an
 // asynchronous wgmma (they belong to the tensor core until the wait).
-__device__ __forceinline__ void fence_operands(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= sa * A * B for a 64 x 64 x 16 bf16 product, float32 accumulate:
@@ -225,14 +272,79 @@ __device__ __forceinline__ void wgmma_64x128x16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(SA), "n"(TA), "n"(TB));
 }
 
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+// The same for a 64 x 192 x 16 product: thread t of warp w holds rows
+// 16 w + t / 4 (d[4 j], d[4 j + 1]) and 16 w + t / 4 + 8 (d[4 j + 2],
+// d[4 j + 3]) of columns 8 j + 2 (t % 4) and + 1, j = 0..23.
+template <int TA, int TB, int SA = 1>
+__device__ __forceinline__ void wgmma_64x192x16(float (&d)[96], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, %99, 1, %100, %101;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(SA), "n"(TA), "n"(TB));
+}
+
+// Four 8 x 8 b16 matrices from registers to shared memory, transposed:
+// r[q] holds matrix q in mma_bf16's accumulator layout (thread t: row
+// t / 4, columns 2 (t % 4) and + 1); lane l gives the address of row
+// l % 8 of the transpose of matrix l / 8, that is of column l % 8 of
+// matrix l / 8 (16 contiguous bytes).
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0,
+                                                  uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1, %2, %3, %4};\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
-// Host: tensor maps
+// Host: tensor maps and launch helpers
 // ---------------------------------------------------------------------------
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// SMs of the current device (132 on an H100 SXM where the query fails).
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms < 1)
+    return 132;
+  return sms;
+}
 
 using TensorMapEncodeTiled = CUresult (*)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,

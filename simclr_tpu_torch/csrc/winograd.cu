@@ -80,6 +80,7 @@
 
 namespace {
 
+using simclr::aligned16;
 using simclr::bulk_load;
 using simclr::desc_interleave;
 using simclr::fence_operands;
@@ -92,6 +93,7 @@ using simclr::mbar_init;
 using simclr::mbar_wait;
 using simclr::mma_bf16_zero;
 using simclr::named_barrier;
+using simclr::sm_count;
 using simclr::smem_addr;
 using simclr::tma_load_4d;
 using simclr::tma_prefetch_map;
@@ -836,19 +838,6 @@ bool shape_ok(int n, int h, int w, int cin, int kout) {
   return n > 0 && h > 0 && w > 0 && h % 2 == 0 && w % 2 == 0 &&
          cin > 0 && kout > 0 && cin % CH == 0 && kout % CH == 0 &&
          pixels * cin < (1LL << 31) && pixels * kout < (1LL << 31);
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess || sms < 1)
-    return 132;
-  return sms;
 }
 
 simclr::SmemOptIn fwd_smem;

@@ -39,7 +39,7 @@ SIGNATURES = {
     "bn_bwd_relu": (_P,) * 6 + (_I, _I, _I, _P),
     "bn_bwd_add_relu": (_P,) * 10 + (_I, _I, _I, _P),
     "bn_bwd_norelu": (_P,) * 8 + (_I, _I, _I, _P),
-    "conv64_wgrad_chunks": (),
+    "conv64_geometry": (_I,) * 4 + (_P,),
     "conv64_fwd": (_P, _P, _P, _I, _I, _I, _P),
     "conv64_wgrad": (_P,) * 4 + (_I, _I, _I, _P),
     "winograd_geometry": (_I,) * 4 + (_P,),

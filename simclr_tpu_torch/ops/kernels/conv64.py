@@ -1,12 +1,33 @@
 """Layer1's 3x3 stride-1 SAME convolution at C_in = C_out = 64: CUDA
 kernels B4f and B4w (``csrc/conv64.cu``), their plain PyTorch versions,
-and the autograd function around them.
+the packing of the filter and the mirror of the kernels' tiles, and the
+autograd function around them.
 
-Replaces ``simclr_tpu/ops/pallas/conv64.py``, with its numerics: bf16
-operands (the weight cast to the input's type), float32 sums, the output
-rounded to bf16 once. The input gradient is the same convolution of the
-cotangent with the filter rotated 180 degrees and in/out swapped
-(``rot180_swap``); the weight gradient is float32 and is not rounded.
+Replaces ``simclr_tpu/ops/pallas/conv64.py`` (B4f: ``_kernel`` through
+``_conv_hwcn``; B4w: ``_wgrad_kernel`` through ``_wgrad_hwcn``), with its
+numerics: bf16 operands (the weight cast to the input's type), float32
+sums, the output rounded to bf16 once. The input gradient is the same
+convolution of the cotangent with the filter rotated 180 degrees and
+in/out swapped (``rot180_swap``); the weight gradient is float32 and is
+not rounded.
+
+What bounds the kernels on the H100, at the path's [1024, 64, 32, 32]:
+268 MB of bf16 in and out (0.080 ms) against 77.3 GFLOP (0.078 ms), so
+loads and products must overlap and neither may repeat much. Both stage
+image rows in shared memory by TMA, three times at column offsets -1, 0
+and +1, whose zero fill is the SAME padding; a pixel (64 channels, 128
+bytes) is one row of the 128-byte swizzle, so every tap is an aligned
+wgmma descriptor into the staged rows and no pixel is gathered per tap.
+B4f (persistent, one block of two consumer warpgroups and a loading warp
+per SM) keeps the packed filter (``pack_filter``, 72 KB) in shared memory,
+multiplies 64 output channels x 128 pixels a warpgroup and writes each
+tile with one TMA store; its tiles are ``geometry(.., 0)``. B4w runs one
+block per range of image rows (``geometry(.., 1)``'s items of 64 pixels
+split into equal shares, one range per SM), a warpgroup per kernel row,
+and writes a float32 partial dW per range (ranges x 9 x 64 x 64 x 4
+bytes, 19.5 MB at 132 ranges) that a second kernel sums in a fixed
+order. The source's header gives the byte and
+clock counts and the shared-memory budget (229,440 and 229,568 bytes).
 
 Layouts are the port's: x is (N, 64, H, W), normally in channels_last
 memory (physically NHWC, as the kernels read it), and w is (64, 64, 3, 3)
@@ -14,10 +35,10 @@ as ``nn.Conv2d`` keeps it. A wrapper brings each operand to channels_last
 first (a copy only where needed: autograd promises no layout).
 
 GPU gate (``supports``): a 4-D bf16 tensor with 64 channels, at least one
-image and pixel, fewer than 2**31 elements. Any batch and any H, W >= 1
-(the kernel masks the ragged last tile and pads the border itself). The
-JAX gate's batch % 256 and H, W >= 3 are rules of its batch-on-lanes TPU
-layout and do not apply.
+image and pixel, fewer than 2**31 elements. Any batch and any H, W >= 1:
+rows wider than 64 columns are cut into column tiles, each with its own
+halo. The JAX gate's batch % 256 and H, W >= 3 are rules of its
+batch-on-lanes TPU layout and do not apply.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel, or raises ``ValueError`` for operands the kernel
@@ -27,13 +48,24 @@ to the wrapper's ``launches``.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from simclr_tpu_torch.ops.kernels import _build
 
 C = 64
+TAPS = 9
 _SHAPE_W = (C, C, 3, 3)
+# csrc/conv64.cu's tiling: columns of a column tile, B4f's output pixels
+# of a tile (two warpgroups of 128), pixels of one copy of its box, and
+# the pixels of a B4w item's rows.
+MAX_COLS = 64
+FWD_TILE = 256
+FWD_SLOT = 320
+WGRAD_ITEM = 64
 
 
 def supports(x: torch.Tensor) -> bool:
@@ -48,10 +80,66 @@ def rot180_swap(w: torch.Tensor) -> torch.Tensor:
     return w.flip(2, 3).transpose(0, 1)
 
 
-def prep_filter(w: torch.Tensor) -> torch.Tensor:
-    """(64, 64, 3, 3) -> the kernel's [tap = 3 ky + kx][co][ci] bf16."""
-    return w.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, C, C) \
-        .contiguous()
+@functools.cache
+def _pack_index(device: torch.device) -> torch.Tensor:
+    """Flat index into a (64, 64, 3, 3) filter of each element of
+    ``pack_filter``'s output, built once per device."""
+    tap, co, chunk, e = torch.meshgrid(
+        *(torch.arange(n) for n in (TAPS, C, 8, 8)), indexing="ij")
+    ci = 8 * (chunk ^ (co % 8)) + e
+    return (((co * C + ci) * 3 + tap // 3) * 3 + tap % 3).to(device)
+
+
+def pack_filter(w: torch.Tensor) -> torch.Tensor:
+    """(64, 64, 3, 3) -> B4f's filter operand, (9, 64, 8, 8) bf16:
+    [tap = 3 ky + kx][co][16-byte chunk][8 ci] with chunk c of row co
+    stored at c ^ (co % 8), so that each tap is one 8 KB block of 64 rows
+    of 128 bytes in wgmma's K-major 128-byte-swizzle layout, copied as it
+    is. One gather (``w`` may be a strided view, as ``rot180_swap``'s)."""
+    return torch.take(w.to(torch.bfloat16), _pack_index(w.device))
+
+
+def unpack_filter(packed: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_filter``: (64, 64, 3, 3)."""
+    w = torch.empty(C * C * 9, dtype=packed.dtype, device=packed.device)
+    w[_pack_index(packed.device).reshape(-1)] = packed.reshape(-1)
+    return w.reshape(_SHAPE_W)
+
+
+def geometry(n: int, h: int, w: int, kernel: int) -> tuple:
+    """The kernels' tiling (csrc/conv64.cu ``geometry``, the first five
+    entries of ``conv64_geometry``): (wt, rows, column tiles, row tiles,
+    tiles). An image row is cut evenly into ceil(W / 64) column tiles of
+    wt columns, a multiple of 8 for B4f (kernel 0) and of 16 for B4w
+    (kernel 1). A B4f tile is ``rows`` output rows of one column tile, at
+    most 256 pixels, its box of rows + 2 rows at most 320 pixels; a B4w
+    item is 64 // wt rows (one at wt = 48 or 64)."""
+    nct = -(-w // MAX_COLS)
+    cols, align = -(-w // nct), (8 if kernel == 0 else 16)
+    wt = -(-cols // align) * align
+    rows = (max(1, min(h, FWD_TILE // wt, FWD_SLOT // wt - 2))
+            if kernel == 0 else max(1, WGRAD_ITEM // wt))
+    nrt = -(-h // rows)
+    return wt, rows, nct, nrt, n * nrt * nct
+
+
+def tile_boxes(n: int, h: int, w: int, kernel: int) -> list:
+    """(image, first row, end row, first column, end column) of the outputs
+    of each tile (B4f) or item (B4w), in the kernel's order: B4f by
+    (image, row tile, column tile), B4w by (image, column tile, row tile),
+    the last fastest. Rows and columns may run past the image (computed from
+    zeros, not stored); the tile reads its input from the box one row and
+    one column wider on each side."""
+    wt, rows, nct, nrt, tiles = geometry(n, h, w, kernel)
+    out = []
+    for t in range(tiles):
+        if kernel == 0:
+            ct, rt, img = t % nct, t // nct % nrt, t // (nct * nrt)
+        else:
+            rt, ct, img = t % nrt, t // nrt % nct, t // (nrt * nct)
+        out.append((img, rt * rows, rt * rows + rows, ct * wt,
+                    ct * wt + wt))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +191,7 @@ def conv_c64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if tuple(w.shape) != _SHAPE_W or w.device != x.device:
         raise ValueError(f"conv64_fwd needs a {_SHAPE_W} filter on "
                          f"{x.device}, got {tuple(w.shape)} on {w.device}")
-    xs, wt = nhwc_operand(x), prep_filter(w)
+    xs, wt = nhwc_operand(x), pack_filter(w)
     y = torch.empty_like(xs, memory_format=torch.channels_last)
     n, _, h, wd = x.shape
     with torch.cuda.device(x.device):
@@ -123,11 +211,15 @@ def wgrad_c64(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _check("conv64_wgrad", x, g)
     xs, gs = nhwc_operand(x), nhwc_operand(g)
     lib = _build.library()
-    partial = torch.empty((lib.conv64_wgrad_chunks(), 3, C, 3 * C),
-                          dtype=torch.float32, device=x.device)
-    dw = torch.empty(_SHAPE_W, dtype=torch.float32, device=x.device)
     n, _, h, wd = x.shape
+    geom = (ctypes.c_int * 6)()
     with torch.cuda.device(x.device):
+        _build.check(lib.conv64_geometry(n, h, wd, 1, geom),
+                     "conv64_geometry")
+        # One float32 partial dW per pixel range.
+        partial = torch.empty((geom[5], TAPS, C, C), dtype=torch.float32,
+                              device=x.device)
+        dw = torch.empty(_SHAPE_W, dtype=torch.float32, device=x.device)
         status = lib.conv64_wgrad(xs.data_ptr(), gs.data_ptr(),
                                   partial.data_ptr(), dw.data_ptr(), n, h,
                                   wd, torch.cuda.current_stream().cuda_stream)
