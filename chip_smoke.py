@@ -50,9 +50,11 @@ Phases, each printed as one line with its result and wall time:
    and recompute-backward) against their plain versions at the four
    stage shapes of ResNet-50 at 1,024 images and at two ragged ones; the
    autograd function against autograd of the plain forward; refused
-   operands must raise. Each kernel is timed beside its plain version and
-   the unfused block (cuDNN convs and PyTorch elementwise, forward and
-   forward + backward).
+   operands must raise; no B6 kernel may spill (ptxas). Each kernel is
+   timed beside its plain version and the unfused block (cuDNN convs and
+   PyTorch elementwise, forward and forward + backward). Then b6_split:
+   one call of each at each stage under torch.profiler, device time by
+   kernel, and each wrapper's time with its packing done beforehand.
 12. fused_slice, fused_profile: phases 6 and 7 with
    ``ModelConfig(fuse_identity_blocks=True)``: the 12 identity blocks
    through B6f and B6b (12 launches of each a step).
@@ -63,7 +65,12 @@ Phases, each printed as one line with its result and wall time:
    augmentation draws; the losses must agree.
 
 Then a JSON line with each kernel's numbers, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
+limit, and as the last line ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py b6_split   # only B6's time split (also on an
+                                     # archive of an earlier tree)
+    python3 chip_smoke.py b6_trace   # B6 tile kernels' phase clocks
+ Any failure
 exits non-zero without that line; so does a run without a GPU or outside
 the repository. Writes nothing but the kernel build under
 ``simclr_tpu_torch/_build/``.
@@ -205,6 +212,18 @@ def build():
                     or len(conv64.tile_boxes(n, h, w, kernel)) != want[4]):
                 raise RuntimeError("conv64 tiles disagree with the CUDA "
                                    "source")
+    # The fused bottleneck's tiles, grid and workspace (mirrored by
+    # bottleneck.geometry, grid and workspace_bytes, held against a
+    # brute-force enumeration by tests/test_torch_bottleneck_geometry.py).
+    geom8 = (ctypes.c_int * 8)()
+    for n, c, h, w in _B6_SHAPES:
+        if (lib.bottleneck_geometry(n, h, w, c, geom8) != 0
+                or tuple(geom8)[:7] != bottleneck.geometry(n, h, w, c)
+                or geom8[7] != bottleneck.grid(n, h, w, c, sms)
+                or lib.bottleneck_bwd_workspace(n, h, w, c)
+                != bottleneck.workspace_bytes(n, h, w, c, sms)):
+            raise RuntimeError("bottleneck tiles or workspace disagree with "
+                               "the CUDA source")
     # The C side takes exactly the widths and row lengths supports() does.
     work = lib.bottleneck_bwd_workspace
     if work(1, 1, 1, 32) != 0 or not all(
@@ -214,12 +233,15 @@ def build():
         raise RuntimeError("bottleneck WIDTHS/TILE_ELEMS disagree with the "
                            "CUDA source")
     log = (lib_path.parent / "build.log").read_text()
-    for name, frame, usage in _ptxas_usage(log):
-        print(f"  ptxas: {name}: {usage}; {frame}")
+    usage = _ptxas_usage(log)
+    for name, frame, regs in usage:
+        print(f"  ptxas: {name}: {regs}; {frame}")
     for line in log.splitlines():
-        if "warning" in line:
+        # ptxas reports serialised wgmma (C7515) as information.
+        if "warning" in line or "C7515" in line:
             print(f"  nvcc: {line.strip()}")
-    return {"summary": f"{lib_path.relative_to(lib_path.parents[2])}"}
+    return {"ptxas": usage,
+            "summary": f"{lib_path.relative_to(lib_path.parents[2])}"}
 
 
 def _ptxas_usage(log):
@@ -967,8 +989,147 @@ def _b6_refusals(torch, k, gen):
                              "not raise")
 
 
+def _b6_split(torch, k, gen):
+    """Where B6's time goes, at the four stage shapes: one bottleneck_fwd
+    and one bottleneck_bwd call under torch.profiler, device time by
+    kernel name; and each wrapper's median time beside the same wrapper
+    with its weight and affine packing done beforehand (``pack_weights``
+    and ``_pack_affines`` answered from a cache), which is the C entry
+    point's time plus the wrapper's checks and allocations: the
+    difference is what the packing costs a call. Works on any revision
+    of ``ops/kernels/bottleneck.py`` whose wrappers pack through those two
+    functions (the mma.sync kernels before the Hopper redesign included:
+    ``python3 chip_smoke.py b6_split`` from an archive of such a tree)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for n, c, h, w in _B6_SHAPES[:4]:
+        x, g, ws, aff = _b6_inputs(torch, gen, n, c, h, w)
+        where = f"{n}x{4 * c}x{h}x{w}"
+        calls = {"fwd": lambda: k.bottleneck_fwd(x, *ws, aff),
+                 "bwd": lambda: k.bottleneck_bwd(x, *ws, aff, g)}
+        for name, call in calls.items():
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            by_name = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    key = e.name[:60]
+                    by_name[key] = (by_name.get(key, 0.0)
+                                    + e.time_range.elapsed_us() / 1e3)
+            wrapper = median_ms(torch, call)
+            pack, pack_aff = k.pack_weights, k._pack_affines
+            cache = {}
+
+            def cached(fn, tag):
+                def run(*args, **kwargs):
+                    key = (tag, *(a if isinstance(a, (bool, int)) else id(a)
+                                  for a in args),
+                           *sorted(kwargs.items()))
+                    if key not in cache:
+                        cache[key] = fn(*args, **kwargs)
+                    return cache[key]
+                return run
+            k.pack_weights = cached(pack, "w")
+            k._pack_affines = cached(pack_aff, "a")
+            try:
+                raw = median_ms(torch, call)
+            finally:
+                k.pack_weights, k._pack_affines = pack, pack_aff
+            split = "; ".join(f"{ms:.4f} {kname}" for kname, ms in sorted(
+                by_name.items(), key=lambda kv: -kv[1]))
+            print(f"  B6 split {where} {name}: wrapper {wrapper:.4f} ms, "
+                  f"packed beforehand {raw:.4f} ms, kernels "
+                  f"{sum(by_name.values()):.4f} ms = {split}", flush=True)
+            out[(c, name)] = dict(wrapper=wrapper, raw=raw, kernels=by_name)
+        del x, g
+    return out
+
+
+# Phase marks of the tile kernel (csrc/bottleneck.cu B6_MARK ids) by mode.
+_B6_MARKS = {
+    0: "tile start, conv1 done, conv1 epilogue done, conv2 pass done, "
+       "conv2 epilogue done, conv3 pass done, conv3 epilogue done",
+    1: "as mode 0 (BWD1)",
+    2: "tile start, da2 pass done, its epilogue done",
+    3: "tile start, dy2 halo in, conv3x3^T pass done, dy1 epilogue done, "
+       "dx pass done, dx epilogue done",
+}
+
+
+@phase("b6_trace")
+def b6_trace_phase(torch):
+    """Where a B6 tile's time goes: a build with -DSIMCLR_B6_TRACE records
+    clock64() at the tile kernel's phase boundaries (B6_MARK) for the first
+    12 tiles of block 0; for one bottleneck_fwd and one bottleneck_bwd call
+    at each stage shape, the mean clocks between consecutive marks (mode,
+    from-id -> to-id; the ids are in _B6_MARKS), past the first two
+    tiles."""
+    from simclr_tpu_torch.ops.kernels import _build
+    from simclr_tpu_torch.ops.kernels import bottleneck as k
+    lib = _build.load(_build.build(("-DSIMCLR_B6_TRACE",)))
+    lib.bottleneck_trace.argtypes = [ctypes.c_void_p]
+    lib.bottleneck_trace.restype = ctypes.c_int
+    plain_library = _build.library
+    _build.library = lambda: lib
+    buf = (ctypes.c_longlong * 1024)()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    try:
+        for n, c, h, w in _B6_SHAPES[:4]:
+            x, g, ws, aff = _b6_inputs(torch, gen, n, c, h, w)
+            for name, call in (("fwd", lambda: k.bottleneck_fwd(x, *ws, aff)),
+                               ("bwd", lambda: k.bottleneck_bwd(
+                                   x, *ws, aff, g))):
+                call()
+                lib.bottleneck_trace(buf)
+                call()
+                marks = list(buf)[:lib.bottleneck_trace(buf)]
+                spans = {}
+                for a, b in zip(marks, marks[1:]):
+                    if (a >> 4) & 15 == (b >> 4) & 15:
+                        key = ((b >> 4) & 15, a & 15, b & 15)
+                        spans.setdefault(key, []).append((b >> 8) - (a >> 8))
+                text = ", ".join(
+                    f"m{m} {i}->{j} {statistics.mean(v[2:] or v):.0f}"
+                    for (m, i, j), v in sorted(spans.items()))
+                print(f"  B6 trace C={c} {name} (clocks): {text}", flush=True)
+                out[(c, name)] = spans
+            del x, g
+    finally:
+        _build.library = plain_library
+    for mode, marks in _B6_MARKS.items():
+        print(f"  B6 trace mode {mode} marks 0..: {marks}")
+    return {"summary": f"{len(out)} calls traced"}
+
+
+@phase("b6_split")
+def b6_split_phase(torch):
+    from simclr_tpu_torch.ops.kernels import bottleneck as k
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = _b6_split(torch, k, gen)
+    return {"split": out, "summary": "; ".join(
+        f"C={c} {name} {t['wrapper']:.4f} ms (packed beforehand "
+        f"{t['raw']:.4f})" for (c, name), t in out.items())}
+
+
+def _b6_spills(ptxas):
+    """The B6 kernels' ptxas lines (csrc/bottleneck.cu's, and conv64.cu's
+    weight-gradient kernel, which computes dw2); raises if one spills."""
+    lines = [(n, f, u) for n, f, u in ptxas
+             if n.startswith("bottleneck_") or n == "conv64_wgrad_kernel"]
+    spills = [(n, f) for n, f, _ in lines
+              if re.search(r"[1-9]\d* bytes spill", f)]
+    if spills:
+        raise AssertionError(f"B6 kernels spill: {spills}")
+    return lines
+
+
 @phase("bottleneck")
-def bottleneck_phase(torch):
+def bottleneck_phase(torch, ptxas):
     import torch.nn.functional as F
     from simclr_tpu_torch.ops.kernels import bottleneck as k
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1039,6 +1200,7 @@ def bottleneck_phase(torch):
     _b6_refusals(torch, k, gen)
     for line in notes:
         print(f"  {line}")
+    regs = sorted({u for _, _, u in _b6_spills(ptxas)})
     # The row: layer1, the path's largest tensors; every stage in notes.
     rows = {"bottleneck_fwd": dict(stages[64]["fwd"],
                                    max_abs_err=err["fwd"]),
@@ -1051,7 +1213,8 @@ def bottleneck_phase(torch):
                        "versions at the four "
                        "stage shapes and two ragged ones; autograd function"
                        f" within 1e-2 ({worst:.2e}); refused operands "
-                       "raise; " + "; ".join(
+                       f"raise; no B6 kernel spills ({len(regs)} ptxas "
+                       "usages); " + "; ".join(
                            f"C={c}: fwd {t['fwd']['ms']:.4f} ms, bwd "
                            f"{t['bwd']['ms']:.4f} ms" for c, t in
                            stages.items())}
@@ -1187,7 +1350,9 @@ _CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("ntxent (B1)", ("ntxent",)),
     ("colour (B2)", ("color_kernel",)),
     ("bn_relu (B3)", ("bn_bwd",)),
-    ("conv64 (B4)", ("conv64_",)),
+    # conv64_wgrad_kernel is also B6b's dw2 (csrc/bottleneck.cu): on the
+    # fused path this category is B6's.
+    ("conv64 (B4; B6b's dw2 on the fused path)", ("conv64_",)),
     ("winograd (B5)", ("winograd_",)),
     ("bottleneck (B6)", ("bottleneck_",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit",
@@ -1361,7 +1526,20 @@ def main() -> int:
     import simclr_tpu_torch  # noqa: F401  (fails outside the repository)
 
     info = env(torch)
-    build()
+    if sys.argv[1:] == ["b6_trace"]:
+        b6_trace_phase(torch)
+        return 0
+    if sys.argv[1:] == ["b6_split"]:
+        # Only B6's time split (see _b6_split), e.g. on an archive of an
+        # earlier tree, for a before/after comparison in one call.
+        from simclr_tpu_torch.ops.kernels import _build
+        log = (_build.build().parent / "build.log").read_text()
+        for name, frame, usage in _ptxas_usage(log):
+            if "bottleneck" in name:
+                print(f"  ptxas: {name}: {usage}; {frame}")
+        b6_split_phase(torch)
+        return 0
+    built = build()
     nt = ntxent_phase(torch)
     col = color_phase(torch)
     b3 = bn_relu_phase(torch)
@@ -1378,7 +1556,8 @@ def main() -> int:
     conv_profile_phase(torch, csl)
     conv_launches = csl["launches"]
     _release(torch, csl)
-    b6 = bottleneck_phase(torch)
+    b6 = bottleneck_phase(torch, built["ptxas"])
+    b6_split_phase(torch)
     fsl = fused_slice_phase(torch, info["smi"])
     fused_profile_phase(torch, fsl)
     fused_launches = fsl["launches"]

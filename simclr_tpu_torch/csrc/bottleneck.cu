@@ -1,6 +1,7 @@
 // The fused stride-1 identity bottleneck of ResNet-50 for Hopper (sm_90a):
-// forward (B6f) and recompute-from-x backward (B6b), bf16 operands on the
-// tensor cores (mma.sync m16n8k16) with float32 accumulation.
+// forward (B6f) and recompute-from-x backward (B6b), warp-specialised
+// kernels that stream the weights through an mbarrier ring and multiply on
+// wgmma (bf16 x bf16 -> float32).
 //
 // Replaces simclr_tpu/ops/pallas/bottleneck.py: _fwd_kernel (B6f,
 // launched by the pallas_call in _fused_fwd, line 213) and _bwd_kernel
@@ -15,1071 +16,1531 @@
 // multiply-add), as in the plain version.
 //
 // Tensors are NHWC (channels_last in PyTorch): a pixel is a row of F (or C)
-// bf16. The Pallas kernel tiles whole images and keeps every weight in VMEM;
-// here a block has 227 KB of shared memory, and the bf16 weights of one
-// block are 136 KB at C = 64 and 8.7 MB at C = 512, so the weights stream
-// from L2 in 64-deep chunks (cp.async, two stages) and only the C-wide
-// intermediates stay in shared memory.
+// bf16, and every operand tile in shared memory is a [64 rows][64
+// channels] block in the 128-byte swizzle (a TMA box of the [pixels][
+// channels] matrix lands so), read by K-major wgmma descriptors.
 //
-// Tiles. A tile is R = M / W consecutive image rows of the (N*H, W) row
-// space (M = 8192 / C pixels: 128 at C = 64, 16 at C = 512), so a tile may
-// span images. 8 warps each own 16 pixels x 64 channels of the tile's
-// M x C accumulators (C / 64 warps across, 8 / (C / 64) down); F-wide
-// products run in C-wide column chunks with the same warp tiling.
-//  * a1 is computed on the tile's rows plus one image row above and below
-//    (the halo, (R + 2) W pixels, in passes of M) into shared memory. The
-//    3x3 gather reads a1 at a neighbour only where the neighbour lies in the
-//    same image; elsewhere it reads a zero row. So SAME pads a1 with zeros,
-//    never with relu(B1), and a halo row of another image is never read.
-//  * B6f, bottleneck_fwd_kernel, per tile: conv1 on the halo -> a1 (shared),
-//    conv2 by 9 gathered taps -> a2 (shared), conv3 in 4 column chunks with
-//    the affine, residual and ReLU in the epilogue -> out. x is read once
-//    (plus the halo rows) and out written once; nothing else leaves the SM.
-//  * B6b runs in five steps. bottleneck_bwd_a_kernel, per tile, recomputes
-//    a1 and y2 (kept in registers) and a2, then y3 chunk by chunk: u3 =
-//    g [pre3 > 0] (written to dx, exact in bf16), dA3/dB3, dy3, and da2 +=
-//    dy3 w3^T; then u2, dA2/dB2 and dy2. bottleneck_bwd_b_kernel, per tile:
-//    da1 = conv3x3^T(dy2) from dy2 with its halo, y1 recomputed, u1,
-//    dA1/dB1, dy1, and dx = bf16(dy1 w1^T + u3). The weight gradients are
-//    split-K products over pixels (bottleneck_wgrad_kernel: dw3 = dy3^T a2,
-//    dw2 = dy2^T shift(a1) for each of 9 taps, dw1 = dy1^T x). For that,
-//    the backward writes five bf16 scratch tensors: a1, a2, dy2, dy1 (C
-//    wide) and dy3 (F wide). The Pallas body sums the weight gradients into
-//    VMEM blocks revisited over an in-order grid; on the card a partial
-//    weight gradient per block would be 17.8 MB at C = 512 (2.35 GB for one
-//    per SM). The scratch is 4F bytes a pixel instead, twice x's bytes
-//    (1.07 GB at layer1, 134 MB at layer4, at 1,024 images).
-//  * Cross-block sums have no atomics: the tile kernels keep their affine
-//    sums in shared memory over their (persistent) tiles and write one
-//    partial per block; the weight gradients one partial per pixel range.
-//    Second kernels add the partials in a fixed order, so every result is
-//    the same from run to run.
+// Tiles (`make_geo`, mirrored by ops/kernels/bottleneck.py:geometry). A
+// consumer warpgroup owns a tile of at most 64 output pixels, one wgmma M:
+// whole images where an image has at most 64 pixels (layer3's 8x8, four
+// of layer4's 4x4: no halo, conv1 runs on the tile alone), else a range
+// of at most 64 pixels of one image (layer1: two rows of 32, layer2: four
+// of 16) whose a1 is computed on the tile plus the rows around it (the
+// halo, W or W + 1 pixels on each side: 128 and 96 pixels at layers 1-2,
+// two 64-row blocks, one conv1 round at layer1, two at layer2). The 3x3
+// taps gather a1 per pixel: the A operand of conv2 comes from registers,
+// loaded by ldmatrix with one row address a lane, a zero row where the
+// neighbour lies outside the pixel's image (SAME pads a1 with zeros,
+// never with relu(B1), and never reads another image's row).
+//
+// Blocks (Cfg): two tiles share every weight chunk, so every weight byte
+// fetched from L2 serves 128 output pixels at every stage (the mma.sync
+// design's tiles of 8192 / C pixels served 128, 64, 32 and 16). At C <=
+// 128 a block has two consumer warpgroups, one a tile, and a producer warp
+// (288 threads; ptxas then allows 168 registers a thread, as for 384); at
+// C >= 256 a tile's a1 and a2 fill a block's shared memory, so a block
+// has one warpgroup (160 threads, 255 registers) and blocks run in
+// clusters of two whose producers each bring half of every chunk to both
+// by a multicast bulk copy. A ring slot (32 KB) is released when every
+// consumer warp of the block or cluster has arrived on its empty barrier.
+// One warpgroup a block runs every epilogue with one warp a scheduler,
+// which leaves its latency bare; the second warpgroup made B6f markedly
+// faster at C <= 128 on an H100.
+//
+// Weights: pack_weights (ops/kernels/bottleneck.py) lays each matrix out
+// as [pass][64-deep step][rows of the pass][64] in the 128-byte swizzle,
+// so that a slot (4, 2 or 1 steps at 64, 128 or 256 rows) is one copy.
+// Products, all m64nNk16 with N <= 128 (64 accumulators a thread; at 256,
+// BWD1 spilled) on a warpgroup, one commit and wait every 64-deep
+// step (4 products, or 8 for conv1 on two halo blocks), one step in flight
+// while the next is issued:
+//   conv1  A = x (TMA boxes of the halo, streamed through the warpgroup's
+//          halo buffer in boxes no earlier round has filled, see
+//          round_box), B = w1; N = min(C, 128) (x comes in again for
+//          each pass at C >= 256), two 64-row blocks a round at C = 64.
+//   conv2  A = a1 gathered into registers (two sets, one a step), B = w2
+//          ([co][tap][ci]); N = min(C, 128).
+//   conv3  A = a2 (shared memory), B = w3, in passes of 128 (B6f's output
+//          in 16-byte stores, the quad's lanes exchanging their pairs).
+//   B6b:   da2 = dy3 w3 (A = dy3 by TMA), conv3x3^T(dy2) (A = dy2 gathered
+//          from its halo, B = w2 rotated and swapped), both in passes of
+//          min(C, 128); dx = dy1 w1 (A = dy1 in shared memory), passes of
+//          128.
+// B6f is one kernel (mode FWD). B6b runs the same kernel three times
+// (modes BWD1-3) and the weight gradients after:
+//   BWD1  the forward through y3 with another epilogue: u3 = g [pre3 > 0]
+//         (its mask as bits), dA3/dB3, dy3; it stores a1, a2 (bf16) and y1,
+//         y2 (float32) at the tile's pixels for the later steps.
+//   BWD2  da2 = dy3 w3^T; u2, dA2/dB2, dy2.
+//   BWD3  dy2 with its halo by TMA, da1 = conv3x3^T(dy2); u1 from y1,
+//         dA1/dB1, dy1; dx = bf16(dy1 w1^T + g [pre3 > 0]).
+//   dw3 = dy3^T a2 and dw1 = x^T dy1 (bottleneck_wgrad_kernel: 128 x N
+//   output tiles, both operands MN-major from TMA boxes of 64 pixels, the
+//   blocks of one pixel range adjacent in the grid so that the range
+//   crosses L2 about once), dw2 by conv64.cu's weight-gradient kernel
+//   (three column-shifted row boxes of a1, one of dy2, all nine taps from
+//   one staging, per 64 x 64 channel tile), each as float32 partials over
+//   pixel ranges.
+// Cross-block sums have no atomics: every warp stores its affine column
+// sums of each tile in a row of its own, and the weight gradients one
+// partial per range; bottleneck_sum_rows adds rows in a fixed order, so
+// every result is the same from run to run.
+//
+// What ptxas needs to keep the products asynchronous (each lapse slowed
+// them several times on an H100): the warp index read through a shuffle
+// (warp_index), else every wgmma behind a branch on it is serialised
+// (C7520); accumulators zeroed and fenced before a pass (an undefined
+// accumulator cost registers and serialisation); one step in flight (two,
+// with three sets of A registers, serialised the forward kernels again).
+// The epilogues read their read-only operands through __ldg: plain loads
+// do not move past the epilogue's stores and stalled each warp for the
+// whole latency. Phase clocks of block 0 (B6_MARK, a build with
+// -DSIMCLR_B6_TRACE, `python3 chip_smoke.py b6_trace`) show where a tile's
+// time goes.
 //
 // What bounds it on the H100: at 1,024 images a block's forward is 146
 // GFLOP (34.4 + 77.3 + 34.4) and its backward 438 GFLOP; at 989 TFLOP/s
 // bf16 that is 0.148 and 0.443 ms, above the bytes of x, out, g and dx
 // except at layer1 (537 MB of x: 0.321 and 0.481 ms) and for B6f at
-// layer2 (0.160 ms). This design does
-// more: conv1 on the halo, weight chunks re-read from L2 for every tile of
-// 16-128 pixels, mma.sync rather than wgmma, one 256-thread block an SM,
-// and the backward's scratch traffic.
-//
-// Shared-memory rows are XOR-swizzled in 16-byte chunks (chunk ^ row % 8),
-// so ldmatrix reads 8 rows without bank conflicts.
+// layer2 (0.160 ms). What this design still does beyond that: the weight
+// stream (each SM receives a block's whole weights for every pair of
+// tiles: 2.2 MB at C = 256, 8.9 MB at C = 512, at about 24 bytes a clock
+// an SM this bounds layers 3-4); conv1 on the halo at layers 1-2; the
+// epilogues' single pass over their columns with few warps to hide it;
+// the backward's scratch (a1, a2, dy1, dy2 bf16, y1, y2 float32, dy3 F
+// wide: 20 F / 4 bytes a pixel, plus F / 8 of mask) written and read
+// again; x, g and dy3 each read twice; dw2 on B4w's 16-column row items,
+// which at layers 3-4 (W = 8 and 4) multiply 2 and 4 times the pixels.
 
-#include "mma.cuh"
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
-using simclr::cp_async16;
-using simclr::cp_async_commit;
-using simclr::cp_async_wait;
+using simclr::aligned16;
+using simclr::bulk_load;
+using simclr::bulk_load_multicast;
+using simclr::cluster_rank;
+using simclr::cluster_sync;
+using simclr::desc_sw128;
+using simclr::fence_operands;
+using simclr::fence_proxy_async;
 using simclr::ldsm_x4;
-using simclr::ldsm_x4_t;
-using simclr::mma_bf16;
+using simclr::mbar_arrive;
+using simclr::mbar_arrive_cluster;
+using simclr::mbar_expect_tx;
+using simclr::mbar_fence_init;
+using simclr::mbar_init;
+using simclr::mbar_wait;
+using simclr::named_barrier;
+using simclr::sm_count;
 using simclr::smem_addr;
+using simclr::tma_load_2d;
+using simclr::tma_prefetch_map;
+using simclr::wgmma_commit;
+using simclr::wgmma_fence;
+using simclr::wgmma_rs;
+using simclr::wgmma_ss;
+using simclr::wgmma_wait;
+using simclr::warp_index;
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int THREADS = 256;        // 8 warps
-constexpr int TILE_ELEMS = 8192;    // pixels x C of a tile
-constexpr int KC = 64;              // reduction depth of one stage
-constexpr int WG_THREADS = 128;     // weight-gradient kernel: 4 warps
-constexpr int WG_T = 64;            // its 64 x 64 tile, 64 pixels a step
-constexpr int WG_SMEM = 2 * 2 * WG_T * 128;
-constexpr int WG_TARGET_BLOCKS = 264;
-constexpr int WG_MAX_CHUNKS = 128;
+constexpr int TILE_ELEMS = 8192;    // the gate: W <= TILE_ELEMS / C
+constexpr int MT = 64;              // output pixels of a tile (wgmma M)
+constexpr int BOX = 64 * 128;       // [64 rows][64 bf16], one TMA box
+constexpr int SLOT = 32768;         // weight ring slot
+constexpr int MAX_ASLOTS = 8;       // A-operand slots of a warpgroup
+
+enum Mode { FWD = 0, BWD1 = 1, BWD2 = 2, BWD3 = 3 };
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <int C>
+struct Cfg {
+  static constexpr int F = 4 * C;
+  static constexpr int CB = C / 64;                // 64-channel blocks
+  // Consumer warpgroups (one tile each) a block, and blocks a cluster: two
+  // tiles share every weight chunk either way. At C <= 128 both tiles of
+  // a block fit its shared memory; at C >= 256 one does, and the blocks
+  // of a cluster of two get each chunk by one multicast.
+  static constexpr int NWG = C <= 128 ? 2 : 1;
+  static constexpr int CL = C <= 128 ? 1 : 2;
+  static constexpr int THREADS = 128 * NWG + 32;   // + the producer warp
+  // Outputs a pass (a thread holds half as many float32 accumulators):
+  // up to 128 for every product (at 256, BWD1 spilled).
+  static constexpr int NP1 = C < 128 ? C : 128;
+  static constexpr int NP2 = C < 128 ? C : 128;
+  static constexpr int NP3 = 128;
+  static constexpr int NPB = C < 128 ? C : 128;
+  // Halo blocks a conv1 round: G x NP1 / 2 accumulators, at most 64 where
+  // two warpgroups share the register file (168 registers a thread).
+  static constexpr int G = C == 64 ? 2 : 1;
+  // Rows of the halo buffer ([CB][ROWS][64]): a tile and its halo at the
+  // widest row the gate takes, W = 8192 / C, and room for conv1's A boxes
+  // (see round_box).
+  static constexpr int ROWS = C == 64 ? 384 : C == 128 ? 192
+                              : C == 256 ? 128 : 64;
+  // The largest halo (at C = 64 a block short of ROWS, so that conv1's
+  // last round keeps two slots of x boxes).
+  static constexpr int CAP = C == 64 ? ROWS - 64 : ROWS;
+  static constexpr int BUF = ROWS * C * 2;         // a1 / dy2, x / dy3 boxes
+  static constexpr int ACT = MT * C * 2;           // a2 / dy1 ([CB][64][64])
+  static constexpr int WGB = BUF + ACT;             // a warpgroup's
+  static constexpr int RING = NWG * WGB;
+  static constexpr int SLOTS = C == 256 ? 4 : 3;    // weight ring slots
+  static constexpr int ZERO = RING + SLOTS * SLOT;  // 128 zero bytes
+  static constexpr int BAR = ZERO + 128;
+  // Weight ring full/empty, then per warpgroup A full/empty, hfull, bfree.
+  static constexpr int WGBAR = 2 * MAX_ASLOTS + 2;
+  static constexpr int NBAR = 2 * SLOTS + NWG * WGBAR;
+  static constexpr int SMEM = BAR + NBAR * 8;
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(RING % 1024 == 0, "swizzle atoms");
+};
 
 // Launch geometry, the same for every kernel of one call.
 struct Geo {
-  int h, w;
-  int rows;    // n * h image rows
-  int r;       // image rows a tile: M / w
-  int mt;      // output pixels a tile: r * w
-  int mh;      // halo pixels: (r + 2) * w
-  int tiles;   // ceil(rows / r)
+  int h, w, hw;
+  int pixels;     // n h w
+  int t;          // output pixels of a full tile
+  int whole;      // 1: a tile is t / hw whole images (no halo)
+  int per_image;  // tiles an image (whole == 0)
+  int tiles;
+  int halo_off;   // halo rows before a tile's first pixel: 0, W or W + 1
+  int hb;         // halo blocks of 64 rows
+  int groups;     // pairs of tiles sharing the weight stream
 };
 
-__device__ __forceinline__ uint32_t swz(uint32_t base, int row, int row_bytes,
-                                        int chunk) {
-  return base + row * row_bytes + ((chunk ^ (row & 7)) << 4);
+// Tiles of x (n, h, w) at width c with halos of at most `cap` pixels, or
+// false for a shape the kernels refuse.
+bool make_geo(int n, int h, int w, int c, int cap, Geo* g) {
+  if (n < 1 || h < 1 || w < 1 ||
+      (c != 64 && c != 128 && c != 256 && c != 512) ||
+      w > TILE_ELEMS / c ||
+      static_cast<long long>(n) * h * w * 4 * c >= (1LL << 31))
+    return false;
+  g->h = h;
+  g->w = w;
+  g->hw = h * w;
+  g->pixels = n * h * w;
+  if (g->hw <= MT) {
+    g->whole = 1;
+    g->t = (MT / g->hw) * g->hw;
+    g->per_image = 0;
+    g->tiles = cdiv(n, MT / g->hw);
+    g->halo_off = 0;
+    g->hb = 1;
+  } else {
+    g->whole = 0;
+    int t = MT, off = w + (t % w != 0);
+    if (t + 2 * off > cap) {
+      t = cap - 2 * (w + 1);
+      off = w + (t % w != 0);
+    }
+    g->t = t;
+    g->per_image = cdiv(g->hw, t);
+    g->tiles = n * g->per_image;
+    g->halo_off = off;
+    g->hb = cdiv(t + 2 * off, 64);
+  }
+  g->groups = cdiv(g->tiles, 2);
+  return true;
 }
 
-__device__ __forceinline__ float relu_affine(float y, float a, float b) {
-  return fmaxf(__fadd_rn(__fmul_rn(y, a), b), 0.f);
+int cap_for(int c) {
+  switch (c) {
+    case 64: return Cfg<64>::CAP;
+    case 128: return Cfg<128>::CAP;
+    case 256: return Cfg<256>::CAP;
+    default: return Cfg<512>::CAP;
+  }
 }
+
+struct Tile {
+  int p0, t, lo;   // first pixel, pixels (0: past the batch), halo start
+};
+
+__device__ __forceinline__ Tile tile_at(const Geo& g, int i) {
+  if (i >= g.tiles) return {0, 0, -g.halo_off};
+  int p0, t;
+  if (g.whole) {
+    p0 = i * g.t;
+    t = min(g.t, g.pixels - p0);
+  } else {
+    const int img = i / g.per_image, j = i - img * g.per_image;
+    p0 = img * g.hw + j * g.t;
+    t = min(g.t, g.hw - j * g.t);
+  }
+  return {p0, t, p0 - g.halo_off};
+}
+
+// Bit 3 ky + kx: pixel i of the tile has its (ky - 1, kx - 1) neighbour in
+// its own image.
+__device__ __forceinline__ uint32_t tap_mask(const Geo& g, const Tile& tl,
+                                             int i) {
+  if (i >= tl.t) return 0;
+  const int q = (tl.p0 + i) % g.hw, y = q / g.w, x = q - y * g.w;
+  uint32_t m = 0;
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int yy = y + tap / 3 - 1, xx = x + tap % 3 - 1;
+    if (yy >= 0 && yy < g.h && xx >= 0 && xx < g.w) m |= 1u << tap;
+  }
+  return m;
+}
+
+// conv1 runs in rounds, one a pass of NP1 outputs of a group of at most
+// G halo blocks; x comes in through the halo buffer, in the
+// 64 x 64 boxes that no earlier round of the tile has filled with a1:
+// first the round's own rows (those of its columns and later ones), then
+// the rows of later groups. Box k of round (gi, p) with nb blocks (BWD2,
+// whose dy3 boxes may take the whole buffer: gi = p = 0, nb = 1): its
+// byte offset in the buffer, and the round's number of boxes.
+template <int C>
+__device__ __forceinline__ int round_box(int gi, int p, int nb, int cbp,
+                                         int k) {
+  constexpr int CB = Cfg<C>::CB, G = Cfg<C>::G, ROWS = Cfg<C>::ROWS;
+  const int wide = CB - p * cbp, first = nb * wide;
+  int rb, cb;
+  if (k < first) {
+    rb = gi * G + k / wide;
+    cb = p * cbp + k % wide;
+  } else {
+    k -= first;
+    rb = gi * G + nb + k / CB;
+    cb = k % CB;
+  }
+  return cb * ROWS * 128 + rb * BOX;
+}
+
+template <int C>
+__device__ __forceinline__ int round_boxes(int gi, int p, int nb, int cbp) {
+  constexpr int CB = Cfg<C>::CB, G = Cfg<C>::G, R = Cfg<C>::ROWS / 64;
+  return nb * (CB - p * cbp) + (R - gi * G - nb) * CB;
+}
+
+struct Args {
+  Geo g;
+  const unsigned char* w0;   // the mode's packed weight matrices, in order
+  const unsigned char* w1;
+  const unsigned char* w2;
+  const float* aff;          // [A1 B1 A2 B2 (C each) A3 B3 (F each)]
+  const bf16* x;
+  const bf16* gy;
+  bf16* out;                 // FWD: the block's output; BWD3: dx
+  bf16 *a1, *a2, *dy3, *dy2, *dy1;
+  float *y1, *y2;
+  uint2* mask;               // u3's mask: a tile's bits, a uint2 a
+                             // thread and pass of 128 columns
+  float* part;               // affine partial sums, a row a tile's warp
+};
 
 __device__ __forceinline__ float pre_affine(float y, float a, float b) {
   return __fadd_rn(__fmul_rn(y, a), b);
 }
 
-__device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+__device__ __forceinline__ void st_bf16x2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// One output pixel of a tile: its index (-1 if the tile row is past the
-// end or i >= mt), its row in the tile, column, and row in its image.
-struct OutPx {
-  int p, li, col, y;
-};
-
-__device__ __forceinline__ OutPx out_px(const Geo& g, int r0, int i) {
-  const int li = i / g.w, col = i - li * g.w, gr = r0 + li;
-  if (i >= g.mt || gr >= g.rows) return {-1, li, col, 0};
-  return {gr * g.w + col, li, col, gr % g.h};
-}
-
-// The global pixel of halo index j (row j / w - 1 of the tile), or -1.
-__device__ __forceinline__ int halo_px(const Geo& g, int r0, int j) {
-  if (j >= g.mh) return -1;
-  const int hl = j / g.w, gr = r0 + hl - 1;
-  if (gr < 0 || gr >= g.rows) return -1;
-  return gr * g.w + (j - hl * g.w);
-}
-
-// The halo row that output pixel o reads for tap (ky, kx), or -1 (zero
-// padding) where the neighbour is outside o's image.
-__device__ __forceinline__ int gather_row(const Geo& g, const OutPx& o,
-                                          int tap) {
-  const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-  const int yy = o.y + dy, xx = o.col + dx;
-  if (o.p < 0 || yy < 0 || yy >= g.h || xx < 0 || xx >= g.w) return -1;
-  return (o.li + dy + 1) * g.w + xx;
-}
-
-// Shared memory of the tile kernels, carved from the dynamic allocation.
-template <int CW>
-struct Smem {
-  static constexpr int C = 64 * CW, F = 4 * C, M = 128 / CW, WM = 8 / CW;
-  uint32_t halo;   // mh rows x C bf16: a1 (or dy2); later dy3 / dy1 tiles
-  uint32_t act;    // M rows x C bf16: a2
-  uint32_t zero;   // one row of C zeros
-  uint32_t ast;    // 2 stages x M rows x 64 bf16 (A operand from global)
-  uint32_t bst;    // 2 stages x C rows x 64 bf16 (weight chunk)
-  float* red;      // 2 x WM x C float: column sums across warps
-  float* blk;      // the block's affine-gradient sums (2F + 2C floats)
-
-  static __host__ __device__ int halo_bytes(int mh) {
-    return (mh * C * 2 + 127) / 128 * 128;
-  }
-  static __host__ __device__ int bytes(int mh) {
-    return halo_bytes(mh) + M * C * 2 + C * 2 + 2 * M * 128 + 2 * C * 128 +
-           2 * WM * C * 4 + (2 * F + 2 * C) * 4;
-  }
-  __device__ Smem(unsigned char* base, int mh) {
-    uint32_t a = smem_addr(base);
-    int off = 0;
-    halo = a + off;
-    off += halo_bytes(mh);
-    act = a + off;
-    off += M * C * 2;
-    zero = a + off;
-    off += C * 2;
-    ast = a + off;
-    off += 2 * M * 128;
-    bst = a + off;
-    off += 2 * C * 128;
-    red = reinterpret_cast<float*>(base + off);
-    off += 2 * WM * C * 4;
-    blk = reinterpret_cast<float*>(base + off);
-  }
-};
-
-__device__ __forceinline__ void st_shared_bf16x2(uint32_t addr, float a,
-                                                 float b) {
+__device__ __forceinline__ void sts_bf16x2(uint32_t addr, float a, float b) {
   __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
                "r"(*reinterpret_cast<uint32_t*>(&v)));
 }
 
-__device__ __forceinline__ void zero_acc(float (&acc)[8][4]) {
+// Stores this warp's column sums over its 16 rows of (u y, u) for columns
+// col and col + 1 into its row of partial sums (dA at prow[ca + ..], dB at
+// prow[cb + ..]); sa, sb are the thread's sums over its two rows.
+__device__ __forceinline__ void store_sums(float* prow, int ca, int cb,
+                                           int col, float2 sa, float2 sb,
+                                           int lane) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-}
-
-// acc (this warp's 16 x 64 of the tile's M x C) += A (M x 64 steps) * B^T,
-// where B is C rows of a row-major weight matrix with row stride ldb
-// starting at b, read 64 columns a step. stage_a(step, buf) issues the
-// cp.async copies of A's step into its stage buffer, if A comes from
-// global memory; addr_a(step, buf, ks) is this lane's ldmatrix address for
-// the 16-deep slice ks of the step (rows lane % 16, chunk lane / 16).
-template <int CW, typename StageA, typename AddrA>
-__device__ __forceinline__ void gemm(float (&acc)[8][4], int steps,
-                                     const bf16* b, int ldb,
-                                     const Smem<CW>& s, StageA stage_a,
-                                     AddrA addr_a) {
-  constexpr int C = Smem<CW>::C;
-  const int tid = threadIdx.x, lane = tid & 31, wn = (tid >> 5) % CW;
-  auto stage = [&](int st) {
-    stage_a(st, st & 1);
-    const uint32_t dst = s.bst + (st & 1) * C * 128;
-    const bf16* src = b + st * KC;
-    for (int i = tid; i < C * 8; i += THREADS) {
-      const int row = i >> 3, q = i & 7;
-      cp_async16(swz(dst, row, 128, q),
-                 src + static_cast<long long>(row) * ldb + q * 8, true);
-    }
-  };
-  stage(0);
-  cp_async_commit();
-  for (int st = 0; st < steps; ++st) {
-    if (st + 1 < steps) stage(st + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const uint32_t bbuf = s.bst + (st & 1) * C * 128;
-#pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks) {
-      uint32_t a[4];
-      ldsm_x4(addr_a(st, st & 1, ks), a);
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t bq[4];
-        const int row = wn * 64 + nj * 16 + (lane & 7) + ((lane >> 4) << 3);
-        ldsm_x4(swz(bbuf, row, 128, ks * 2 + ((lane >> 3) & 1)), bq);
-        mma_bf16(acc[2 * nj], a, bq[0], bq[1]);
-        mma_bf16(acc[2 * nj + 1], a, bq[2], bq[3]);
-      }
-    }
-    __syncthreads();
+  for (int off = 4; off < 32; off <<= 1) {
+    sa.x += __shfl_xor_sync(0xffffffffu, sa.x, off);
+    sa.y += __shfl_xor_sync(0xffffffffu, sa.y, off);
+    sb.x += __shfl_xor_sync(0xffffffffu, sb.x, off);
+    sb.y += __shfl_xor_sync(0xffffffffu, sb.y, off);
   }
-  cp_async_wait<0>();
+  if (lane < 4) {
+    *reinterpret_cast<float2*>(prow + ca + col) = sa;
+    *reinterpret_cast<float2*>(prow + cb + col) = sb;
+  }
 }
 
-// A from global memory: this thread copies chunk tid % 8 of tile rows
-// tid / 8 + 32 k; px[k] is that row's pixel (or -1 for zeros), src the
-// row-major [pixel][ld] operand.
-template <int CW>
-struct GlobalA {
-  static constexpr int M = Smem<CW>::M;
-  static constexpr int ROWS = (M * 8 + THREADS - 1) / THREADS;
-  const bf16* src;
-  int ld;
-  int px[ROWS];
-  uint32_t ast;
-
-  __device__ void operator()(int st, int buf) const {
-    const int tid = threadIdx.x, q = tid & 7;
-#pragma unroll
-    for (int k = 0; k < ROWS; ++k) {
-      const int row = (tid >> 3) + 32 * k;
-      if (row < M) {
-        const bool ok = px[k] >= 0;
-        const bf16* p =
-            ok ? src + static_cast<long long>(px[k]) * ld + st * KC + q * 8
-               : src;
-        cp_async16(swz(ast + buf * M * 128, row, 128, q), p, ok);
-      }
-    }
+// A thread's row of a [64-channel block][rows][64] shared-memory tile in
+// the 128-byte swizzle, from column c0 + 2 q: the address of column c0 +
+// 8 jj + 2 q is at(jj).
+struct SRow {
+  uint32_t base;
+  int stride, r7;
+  __device__ __forceinline__ uint32_t at(int jj) const {
+    return base + (jj >> 3) * stride + (((jj & 7) ^ r7) << 4);
   }
 };
 
-template <int CW>
-__device__ __forceinline__ uint32_t staged_a_addr(uint32_t ast, int buf,
-                                                  int ks) {
-  constexpr int M = Smem<CW>::M;
-  const int lane = threadIdx.x & 31, wm = (threadIdx.x >> 5) / CW;
-  return swz(ast + buf * M * 128, wm * 16 + (lane & 15), 128,
-             ks * 2 + (lane >> 4));
+__device__ __forceinline__ SRow srow(const unsigned char* tile, int stride,
+                                     int row, int c0, int q) {
+  return {smem_addr(tile) + (c0 >> 6) * stride + row * 128 + 4 * q, stride,
+          row & 7};
 }
 
-// ldmatrix address of this lane's row of a C-wide shared tile (row-major,
-// 64-deep step st, slice ks).
-template <int CW>
-__device__ __forceinline__ uint32_t rows_a_addr(uint32_t base, int st,
-                                                int ks) {
-  constexpr int C = Smem<CW>::C;
-  const int lane = threadIdx.x & 31, wm = (threadIdx.x >> 5) / CW;
-  return swz(base, wm * 16 + (lane & 15), C * 2,
-             st * 8 + ks * 2 + (lane >> 4));
+// Phase clocks of the first 12 tiles of block 0 (thread 0, the first
+// consumer thread), for a build with -DSIMCLR_B6_TRACE:
+// bottleneck_trace copies them out.
+#ifdef SIMCLR_B6_TRACE
+__device__ long long b6_trace[1024];
+__device__ int b6_trace_n;
+#define B6_MARK(id)                                                   \
+  do {                                                                \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && tcount < 12 &&         \
+        b6_trace_n < 1024)                                            \
+      b6_trace[b6_trace_n++] = (clock64() << 8) | (MODE << 4) | (id); \
+  } while (0)
+#else
+#define B6_MARK(id) \
+  do {              \
+  } while (0)
+#endif
+
+// Zeroes accumulators and hands them to the asynchronous proxy: ptxas
+// serialises every wgmma of a kernel whose accumulators another
+// instruction may define inside a pipeline stage (as an undefined value
+// does), so each pass starts from zeros, fenced, and every product
+// accumulates.
+template <int N>
+__device__ __forceinline__ void start_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] = 0.f;
+  fence_operands(acc);
+  wgmma_fence();
 }
 
-// conv3x3 over the halo tile (a1, or dy2 with the rotated filter): step st
-// is tap st / CW, channels 64 (st % CW) on.
-template <int CW>
-__device__ __forceinline__ void conv3x3_tile(float (&acc)[8][4],
-                                             const bf16* w2, const Geo& g,
-                                             int r0, const Smem<CW>& s) {
-  constexpr int C = Smem<CW>::C;
-  const int lane = threadIdx.x & 31, wm = (threadIdx.x >> 5) / CW;
-  const OutPx o = out_px(g, r0, wm * 16 + (lane & 15));
-  zero_acc(acc);
-  gemm<CW>(acc, 9 * CW, w2, 9 * C, s,
-           [](int, int) {},
-           [&](int st, int, int ks) {
-             const int hj = gather_row(g, o, st / CW);
-             const int chunk = (st % CW) * 8 + ks * 2 + (lane >> 4);
-             return hj < 0 ? s.zero + (chunk << 4)
-                           : swz(s.halo, hj, C * 2, chunk);
-           });
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Column sums of this thread's fragment (over its two rows) reduced over
-// the tile and added to sums_a / sums_b (shared, C entries each) in a
-// fixed order: across the 8 row groups of a warp by shuffles, then across
-// the warps of a column block through `red`.
-template <int CW>
-__device__ __forceinline__ void add_column_sums(float (&va)[8][2],
-                                                float (&vb)[8][2],
-                                                const Smem<CW>& s,
-                                                float* sums_a,
-                                                float* sums_b) {
-  constexpr int C = Smem<CW>::C, WM = Smem<CW>::WM;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / CW, wn = warp % CW;
+// Stores four bf16 pairs of one row a thread (v[k]: columns 8 k + 2 q and
+// + 1 from `row`, q = lane % 4) as one 16-byte store a lane: the quad's
+// lanes swap words so that lane q writes columns 8 q .. 8 q + 7, whole
+// 32-byte sectors, where a store a pair wrote half sectors. Every lane
+// calls it (shuffles); those with `ok` store.
+__device__ __forceinline__ void store_quad(bf16* row, const uint32_t (&v)[4],
+                                           int lane, bool ok) {
+  const int q = lane & 3;
+  uint32_t o[4];
 #pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
+  for (int r = 0; r < 4; ++r) {
+    const int d = (q - r) & 3, src = (q + r) & 3;
+    const uint32_t send = d == 0 ? v[0] : d == 1 ? v[1] : d == 2 ? v[2] : v[3];
+    const uint32_t got =
+        r == 0 ? send : __shfl_sync(0xffffffffu, send, (lane & ~3) | src);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float a = va[ni][e], b = vb[ni][e];
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        a += __shfl_xor_sync(0xffffffffu, a, off);
-        b += __shfl_xor_sync(0xffffffffu, b, off);
-      }
-      if (lane < 4) {
-        const int col = wn * 64 + ni * 8 + 2 * lane + e;
-        s.red[wm * C + col] = a;
-        s.red[(WM + wm) * C + col] = b;
-      }
-    }
-  __syncthreads();
-  for (int col = tid; col < C; col += THREADS) {
-    float a = 0.f, b = 0.f;
-    for (int k = 0; k < WM; ++k) {
-      a += s.red[k * C + col];
-      b += s.red[(WM + k) * C + col];
-    }
-    sums_a[col] += a;
-    sums_b[col] += b;
+    for (int k = 0; k < 4; ++k)
+      if (src == k) o[k] = got;
   }
-  __syncthreads();
+  if (ok)
+    *reinterpret_cast<uint4*>(row + 8 * q) = make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-// a1 = bf16(relu(A1 (x w1) + B1)) on the tile's halo rows, into s.halo; with
-// a1_out, the tile's own rows also to global memory.
-template <int CW>
-__device__ __forceinline__ void conv1_halo(const bf16* x, const bf16* w1,
-                                           const float* aff, const Geo& g,
-                                           int r0, const Smem<CW>& s,
-                                           bf16* a1_out) {
-  constexpr int C = Smem<CW>::C, F = 4 * C, M = Smem<CW>::M;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / CW, wn = warp % CW;
-  const float *A1 = aff, *B1 = aff + C;
-  for (int base = 0; base < g.mh; base += M) {
-    GlobalA<CW> ga;
-    ga.src = x;
-    ga.ld = F;
-    ga.ast = s.ast;
-#pragma unroll
-    for (int k = 0; k < GlobalA<CW>::ROWS; ++k)
-      ga.px[k] = halo_px(g, r0, base + (tid >> 3) + 32 * k);
-    float acc[8][4];
-    zero_acc(acc);
-    gemm<CW>(acc, 4 * CW, w1, F, s, ga,
-             [&](int, int buf, int ks) {
-               return staged_a_addr<CW>(s.ast, buf, ks);
-             });
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int j = base + wm * 16 + (lane >> 2) + 8 * h2;
-      if (j >= g.mh) continue;
-      const int hl = j / g.w;
-      const int p = (hl >= 1 && hl <= g.r) ? halo_px(g, r0, j) : -1;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int col = wn * 64 + ni * 8 + 2 * (lane & 3);
-        const float v0 = relu_affine(acc[ni][2 * h2], A1[col], B1[col]);
-        const float v1 =
-            relu_affine(acc[ni][2 * h2 + 1], A1[col + 1], B1[col + 1]);
-        st_shared_bf16x2(swz(s.halo, j, C * 2, col >> 3) + (col & 7) * 2, v0,
-                         v1);
-        if (a1_out && p >= 0)
-          simclr::store_bf16x2(a1_out + static_cast<long long>(p) * C + col,
-                               v0, v1);
-      }
+// Keeps the compiler from hoisting an epilogue's loads of all its
+// columns at once (their registers would spill). The affines are read
+// through the read-only path (__ldg): plain loads would not move past the
+// epilogue's stores, and each would stall its warp, the only one on its
+// scheduler, for the whole load latency.
+__device__ __forceinline__ void epilogue_fence() {
+  asm volatile("" ::: "memory");
+}
+
+// A consumer thread's view of its block (the warpgroup's shared state is
+// in shared memory; these are its own cursors and constants).
+template <int C>
+struct Ctx {
+  unsigned char* smem;
+  unsigned char* buf;   // halo buffer
+  unsigned char* act;   // a2 / dy1
+  uint64_t *wfull, *wempty, *afull, *aempty;
+  const Geo* g;
+  uint32_t zero;        // shared address of 128 zero bytes
+  int lane, wr, q, r0;
+  int wpos;             // weight chunks consumed
+  uint32_t aph;         // per A slot: parity of its next completion
+};
+
+template <int C>
+__device__ __forceinline__ void release_w(Ctx<C>& x, int s) {
+  __syncwarp();
+  if (x.lane == 0) {
+    if (Cfg<C>::CL > 1) {
+      for (int r = 0; r < Cfg<C>::CL; ++r) mbar_arrive_cluster(&x.wempty[s], r);
+    } else {
+      mbar_arrive(&x.wempty[s]);
     }
   }
 }
 
-// y2 = conv3x3(a1) on the tile (left in acc); a2 = bf16(relu(A2 y2 + B2))
-// into s.act, and with a2_out to global memory.
-template <int CW>
-__device__ __forceinline__ void conv2_tile(float (&acc)[8][4],
-                                           const bf16* w2, const float* aff,
-                                           const Geo& g, int r0,
-                                           const Smem<CW>& s, bf16* a2_out) {
-  constexpr int C = Smem<CW>::C;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / CW, wn = warp % CW;
-  const float *A2 = aff + 2 * C, *B2 = aff + 3 * C;
-  conv3x3_tile<CW>(acc, w2, g, r0, s);
+template <int C>
+__device__ __forceinline__ void release_a(Ctx<C>& x, int s) {
+  __syncwarp();
+  if (x.lane == 0) mbar_arrive(&x.aempty[s]);
+}
+
+// One pass of a product: nsb 64-deep steps, 256 / np a weight slot;
+// issue(sb, B base, A slot) issues step sb's products. da > 0: step sb's
+// A came by TMA into A slot sb % da (da >= 2). One step's products stay
+// in flight while the next is issued; a step's A slot, and its weight slot
+// after the slot's last step, go back to the producer once it is done.
+// (Keeping two steps in flight, with three sets of A registers, made
+// ptxas serialise every product of the forward kernels on an H100.)
+template <int C, class Issue>
+__device__ __forceinline__ void consume_pass(Ctx<C>& x, int np, int nsb,
+                                             int da, Issue& issue) {
+  constexpr int NS = Cfg<C>::SLOTS;
+  const int per = 256 / np;
+  int cur = 0, prev = 0;
+  for (int sb = 0; sb < nsb; ++sb) {
+    const int k = sb % per;
+    if (k == 0) {
+      prev = cur;
+      cur = x.wpos % NS;
+      mbar_wait(&x.wfull[cur], (x.wpos / NS) & 1);
+      ++x.wpos;
+    }
+    const int as = da > 0 ? sb % da : 0;
+    if (da > 0) {
+      mbar_wait(&x.afull[as], (x.aph >> as) & 1);
+      x.aph ^= 1u << as;
+    }
+    issue(sb, x.smem + Cfg<C>::RING + cur * SLOT + k * np * 128, as);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (sb > 0) {
+      if (k == 0) release_w(x, prev);
+      if (da > 0) release_a(x, (sb - 1) % da);
+    }
+  }
+  wgmma_wait<0>();
+  release_w(x, cur);
+  if (da > 0) release_a(x, (nsb - 1) % da);
+}
+
+// A-from-registers step sb of a 3x3 product over the halo buffer (tap
+// sb / CB, channels 64 (sb % CB) on) into acc; prow0 is the halo row of
+// this lane's pixel, tmask its taps inside the image.
+template <int C, int N>
+__device__ __forceinline__ void gather_step(const Ctx<C>& x, float (&acc)[N],
+                                            uint32_t (&ar)[4][4], int sb,
+                                            const unsigned char* wb,
+                                            int prow0, uint32_t tmask) {
+  constexpr int CB = C / 64, ROWS = Cfg<C>::ROWS;
+  const int tap = sb / CB, cb = sb - tap * CB;
+  const int row = (tmask >> tap) & 1
+                      ? prow0 + (tap / 3 - 1) * x.g->w + (tap % 3 - 1)
+                      : -1;
+  const uint32_t base =
+      row < 0 ? x.zero : smem_addr(x.buf) + cb * ROWS * 128 + row * 128;
+  const int sw = row < 0 ? 0 : row & 7;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    ldsm_x4(base + (((2 * ks + (x.lane >> 4)) ^ sw) << 4), ar[ks]);
+  wgmma_fence();
+  const uint64_t db = desc_sw128(wb, 16, 1024);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) wgmma_rs(acc, ar[ks], db + 2 * ks, 1);
+}
+
+// One pass of the 3x3 product over the halo buffer (2 N outputs).
+template <int C, int N>
+__device__ __forceinline__ void conv3x3_pass(Ctx<C>& x, float (&acc)[N],
+                                             const Tile& tl) {
+  const int i = 16 * x.wr + (x.lane & 15);
+  const int prow0 = i + x.g->halo_off;
+  const uint32_t tmask = tap_mask(*x.g, tl, i);
+  // A registers for the step in flight and the next.
+  uint32_t ra[4][4], rb[4][4];
+  start_acc(acc);
+  auto issue = [&](int sb, const unsigned char* wb, int) {
+    if (sb & 1)
+      gather_step(x, acc, rb, sb, wb, prow0, tmask);
+    else
+      gather_step(x, acc, ra, sb, wb, prow0, tmask);
+  };
+  consume_pass<C>(x, 2 * N, 9 * (C / 64), 0, issue);
+  fence_operands(acc);
+}
+
+// One pass of an F-wide product with A = act (2 N = NP3 outputs).
+template <int C, int N>
+__device__ __forceinline__ void act_pass(Ctx<C>& x, float (&acc)[N]) {
+  start_acc(acc);
+  auto issue = [&](int sb, const unsigned char* wb, int) {
+    const uint64_t da = desc_sw128(x.act + sb * BOX, 16, 1024);
+    const uint64_t db = desc_sw128(wb, 16, 1024);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<0, 0>(acc, da + 2 * ks, db + 2 * ks, 1);
+  };
+  consume_pass<C>(x, 2 * N, C / 64, 0, issue);
+  fence_operands(acc);
+}
+
+// The thread's two rows (r0, r0 + 8), columns c0 + 8 jj + 2 q (+ 1), of a
+// row-major [pixel][LD] src for an epilogue, loaded before the pass's
+// products: bf16 pairs as uint32 or float32 pairs as float2; zero past
+// the tile.
+template <int LD, int C, class T, class E, int J>
+__device__ __forceinline__ void load_rows(const Ctx<C>& x, T (&v)[2][J],
+                                          const E* src, const Tile& tl,
+                                          int c0) {
 #pragma unroll
   for (int h2 = 0; h2 < 2; ++h2) {
-    const int row = wm * 16 + (lane >> 2) + 8 * h2;
-    const int p = out_px(g, r0, row).p;
+    const int i = x.r0 + 8 * h2;
+    const E* row =
+        src + static_cast<long long>(tl.p0 + min(i, max(tl.t - 1, 0))) * LD +
+        c0 + 2 * x.q;
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int col = wn * 64 + ni * 8 + 2 * (lane & 3);
-      const float v0 = relu_affine(acc[ni][2 * h2], A2[col], B2[col]);
-      const float v1 =
-          relu_affine(acc[ni][2 * h2 + 1], A2[col + 1], B2[col + 1]);
-      st_shared_bf16x2(swz(s.act, row, C * 2, col >> 3) + (col & 7) * 2, v0,
-                       v1);
-      if (a2_out && p >= 0)
-        simclr::store_bf16x2(a2_out + static_cast<long long>(p) * C + col, v0,
-                             v1);
-    }
+    for (int jj = 0; jj < J; ++jj)
+      v[h2][jj] = i < tl.t ? __ldg(reinterpret_cast<const T*>(row + 8 * jj))
+                           : T{};
   }
 }
 
-template <int CW>
-__device__ __forceinline__ void init_block(const Smem<CW>& s, int blk_len) {
-  constexpr int C = Smem<CW>::C;
-  for (int i = threadIdx.x; i < C / 8; i += THREADS)
-    asm volatile("st.shared.v4.b32 [%0], {%1,%1,%1,%1};\n" ::"r"(
-                     s.zero + i * 16),
-                 "r"(0));
-  for (int i = threadIdx.x; i < blk_len; i += THREADS) s.blk[i] = 0.f;
-  __syncthreads();
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
 }
 
-// B6f.
-template <int CW>
-__global__ void __launch_bounds__(THREADS, 1)
-bottleneck_fwd_kernel(const bf16* __restrict__ x,
-                      const bf16* __restrict__ wp,
-                      const float* __restrict__ aff, bf16* __restrict__ out,
-                      Geo g) {
-  constexpr int C = Smem<CW>::C, F = 4 * C;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<CW> s(smem, g.mh);
-  const bf16 *w1 = wp, *w2 = w1 + C * F, *w3 = w2 + 9 * C * C;
-  const float *A3 = aff + 4 * C, *B3 = A3 + F;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / CW, wn = warp % CW;
-  init_block<CW>(s, 0);
-  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
-    const int r0 = tile * g.r;
-    conv1_halo<CW>(x, w1, aff, g, r0, s, nullptr);
-    float acc[8][4];
-    conv2_tile<CW>(acc, w2, aff, g, r0, s, nullptr);
-    for (int j = 0; j < 4; ++j) {
-      zero_acc(acc);
-      gemm<CW>(acc, CW, w3 + static_cast<long long>(j) * C * C, C, s,
-               [](int, int) {},
-               [&](int st, int, int ks) {
-                 return rows_a_addr<CW>(s.act, st, ks);
-               });
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int p = out_px(g, r0, wm * 16 + (lane >> 2) + 8 * h2).p;
-        if (p < 0) continue;
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const int f = j * C + wn * 64 + ni * 8 + 2 * (lane & 3);
-          const long long at = static_cast<long long>(p) * F + f;
-          const float2 xv = ld_bf16x2(x + at);
-          simclr::store_bf16x2(
-              out + at,
-              fmaxf(__fadd_rn(pre_affine(acc[ni][2 * h2], A3[f], B3[f]),
-                              xv.x),
-                    0.f),
-              fmaxf(__fadd_rn(pre_affine(acc[ni][2 * h2 + 1], A3[f + 1],
-                                         B3[f + 1]),
-                              xv.y),
-                    0.f));
-        }
+// The kernel: mode FWD (B6f) or one step of B6b (BWD1-3). A block is
+// warpgroup 0 (the consumers) and warp 4 (the producer, lane 0); blocks
+// run in clusters of two, block r of cluster k on tile 2 (k + j K) + r of
+// round j (K clusters), both fed by each weight chunk once.
+template <int C, int MODE>
+__global__ void __launch_bounds__(Cfg<C>::THREADS, 1)
+bottleneck_tile_kernel(const __grid_constant__ CUtensorMap amap,
+                       const __grid_constant__ Args a) {
+  using K = Cfg<C>;
+  constexpr int F = K::F, CB = K::CB, NP1 = K::NP1, NP2 = K::NP2;
+  constexpr int NP3 = K::NP3;
+  constexpr int NPB = K::NPB, G = K::G, ROWS = K::ROWS;
+  constexpr int CBP = NP1 / 64;   // 64-channel blocks a conv1 pass
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + K::BAR);
+  constexpr int NWG = K::NWG, CL = K::CL, SLOTS = K::SLOTS;
+  // Column steps (jj) an epilogue loads ahead, fewer where two
+  // warpgroups share the register file and in BWD1 and BWD3, whose
+  // epilogues hold the most (global scratch, mask bits, column sums).
+  constexpr int EB = MODE == BWD1 || MODE == BWD3 ? 2 : NWG > 1 ? 4 : 8;
+  // Whether conv3's epilogue gets x in registers before the products.
+  constexpr bool XPRE = NWG == 1 && MODE == FWD;
+  uint64_t* wfull = bar;
+  uint64_t* wempty = bar + SLOTS;
+  // Warpgroup w's A full / empty [MAX_ASLOTS each], hfull (BWD3: the dy2
+  // halo is in its buf) and bfree (its buf is free for the next tile).
+  auto afull_of = [&](int w) { return bar + 2 * SLOTS + w * K::WGBAR; };
+  const Geo& g = a.g;
+  const int tid = threadIdx.x, lane = tid & 31, warp = warp_index();
+  const int rank = CL > 1 ? static_cast<int>(cluster_rank()) : 0;
+  const int cid = blockIdx.x / CL, ncl = gridDim.x / CL;
+  // Tile of warpgroup w in group grp.
+  auto tile_of = [&](int grp, int w) { return 2 * grp + (CL > 1 ? rank : w); };
+
+  if (tid == 0) {
+    if (smem_addr(smem) & 1023) __trap();
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(&wfull[s], 1);
+      mbar_init(&wempty[s], 4 * NWG * CL);   // every consumer warp
+    }
+    for (int w = 0; w < NWG; ++w) {
+      uint64_t* b = afull_of(w);
+      for (int s = 0; s < MAX_ASLOTS; ++s) {
+        mbar_init(&b[s], 1);
+        mbar_init(&b[MAX_ASLOTS + s], 4);
       }
+      mbar_init(&b[2 * MAX_ASLOTS], 1);
+      mbar_init(&b[2 * MAX_ASLOTS + 1], 4);
     }
+    mbar_fence_init();
   }
-}
+  if (tid < 32) reinterpret_cast<uint32_t*>(smem + K::ZERO)[tid] = 0;
+  __syncthreads();
+  if (CL > 1) cluster_sync();
 
-// B6b, first step (see the note at the top). part: per block, the sums of
-// [dA1 | dB1 | dA2 | dB2 | dA3 | dB3]; this kernel writes all but dA1/dB1.
-template <int CW>
-__global__ void __launch_bounds__(THREADS, 1)
-bottleneck_bwd_a_kernel(const bf16* __restrict__ x,
-                        const bf16* __restrict__ gy,
-                        const bf16* __restrict__ wp,
-                        const float* __restrict__ aff, bf16* __restrict__ dx,
-                        bf16* __restrict__ a1_out, bf16* __restrict__ a2_out,
-                        bf16* __restrict__ dy2_out,
-                        bf16* __restrict__ dy3_out, float* __restrict__ part,
-                        Geo g) {
-  constexpr int C = Smem<CW>::C, F = 4 * C;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<CW> s(smem, g.mh);
-  const bf16 *w1 = wp, *w2 = w1 + C * F, *w3 = w2 + 9 * C * C;
-  const bf16* w3t = w3 + F * C + F * C + 9 * C * C;   // (C, F)
-  const float *A2 = aff + 2 * C, *B2 = aff + 3 * C;
-  const float *A3 = aff + 4 * C, *B3 = A3 + F;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / CW, wn = warp % CW;
-  // s.blk: [dA3 (F) | dB3 (F) | dA2 (C) | dB2 (C)]
-  init_block<CW>(s, 2 * F + 2 * C);
-  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
-    const int r0 = tile * g.r;
-    conv1_halo<CW>(x, w1, aff, g, r0, s, a1_out);
-    float y2[8][4];
-    conv2_tile<CW>(y2, w2, aff, g, r0, s, a2_out);
-    float da2[8][4];
-    zero_acc(da2);
-    for (int j = 0; j < 4; ++j) {
-      float acc[8][4];
-      zero_acc(acc);
-      gemm<CW>(acc, CW, w3 + static_cast<long long>(j) * C * C, C, s,
-               [](int, int) {},
-               [&](int st, int, int ks) {
-                 return rows_a_addr<CW>(s.act, st, ks);
-               });
-      float sa[8][2] = {}, sb[8][2] = {};
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int row = wm * 16 + (lane >> 2) + 8 * h2;
-        const int p = out_px(g, r0, row).p;
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const int col = wn * 64 + ni * 8 + 2 * (lane & 3), f = j * C + col;
-          float u[2] = {0.f, 0.f};
-          const long long at = static_cast<long long>(p) * F + f;
-          if (p >= 0) {
-            const float2 xv = ld_bf16x2(x + at), gv = ld_bf16x2(gy + at);
-            const float xs[2] = {xv.x, xv.y}, gs[2] = {gv.x, gv.y};
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float pre = __fadd_rn(
-                  pre_affine(acc[ni][2 * h2 + e], A3[f + e], B3[f + e]),
-                  xs[e]);
-              u[e] = pre > 0.f ? gs[e] : 0.f;
-              sa[ni][e] += u[e] * acc[ni][2 * h2 + e];
-              sb[ni][e] += u[e];
+  if (warp == 4 * NWG) {
+    // Producer. Issues every load in the order the consumers use them.
+    if (lane == 0) {
+      tma_prefetch_map(&amap);
+      int wpos = 0, tcount = 0;
+      uint32_t aph[NWG] = {};   // per A slot: parity of its next fill
+      // A chunk of `bytes` (in a cluster, each block's producer brings
+      // half to both blocks by one multicast).
+      auto weights = [&](const unsigned char* src, int bytes) {
+        const int s = wpos % SLOTS;
+        mbar_wait(&wempty[s], ((wpos / SLOTS) & 1) ^ 1);
+        mbar_expect_tx(&wfull[s], bytes);
+        unsigned char* dst = smem + K::RING + s * SLOT;
+        if (CL > 1) {
+          const int half = bytes / 2;
+          bulk_load_multicast(dst + rank * half, src + rank * half, half,
+                              &wfull[s], 3);
+        } else {
+          bulk_load(dst, src, bytes, &wfull[s]);
+        }
+        ++wpos;
+      };
+      // Step sb's A for warpgroup w in A slot sb % da: nb TMA boxes (at
+      // box k of the round, see round_box), rows r0 + 64 i, columns col.
+      auto a_boxes = [&](int w, int sb, int gi, int p, int nb, int cbp,
+                         int da, int r0, int col) {
+        uint64_t* b = afull_of(w);
+        const int s = sb % da;
+        mbar_wait(&b[MAX_ASLOTS + s], ((aph[w] >> s) & 1) ^ 1);
+        aph[w] ^= 1u << s;
+        mbar_expect_tx(&b[s], nb * BOX);
+        for (int i = 0; i < nb; ++i)
+          tma_load_2d(smem + w * K::WGB +
+                          round_box<C>(gi, p, nb, cbp, s * nb + i),
+                      &amap, &b[s], col, r0 + 64 * i);
+      };
+      // One product's weight chunks: passes of np outputs, nsb 64-deep
+      // steps a pass, 256 / np steps a slot; a_step(sb) brings A for sb.
+      auto product = [&](const unsigned char* w, int np, int passes,
+                         int nsb, auto a_step) {
+        const int per = 256 / np;
+        for (int p = 0; p < passes; ++p)
+          for (int s0 = 0; s0 < nsb; s0 += per) {
+            const int ns = min(per, nsb - s0);
+            weights(w + static_cast<long long>(p * nsb + s0) * np * 128,
+                    ns * np * 128);
+            for (int sb = s0; sb < s0 + ns; ++sb) a_step(p, sb);
+          }
+      };
+      auto no_a = [](int, int) {};
+      for (int grp = cid; grp < g.groups; grp += ncl, ++tcount) {
+        Tile tl[NWG];
+        for (int w = 0; w < NWG; ++w) tl[w] = tile_at(g, tile_of(grp, w));
+        if (MODE != BWD2)
+          for (int w = 0; w < NWG; ++w)
+            mbar_wait(&afull_of(w)[2 * MAX_ASLOTS + 1], (tcount & 1) ^ 1);
+        if (MODE == FWD || MODE == BWD1) {
+          for (int gi = 0; gi * G < g.hb; ++gi) {
+            const int nb = min(G, g.hb - gi * G);
+            for (int p = 0; p < C / NP1; ++p) {
+              const int da =
+                  min(MAX_ASLOTS, round_boxes<C>(gi, p, nb, CBP) / nb);
+              // The round's slots map to other boxes than the last
+              // round's: every earlier fill must have been released.
+              for (int w = 0; w < NWG; ++w)
+                for (int s = 0; s < MAX_ASLOTS; ++s)
+                  mbar_wait(&afull_of(w)[MAX_ASLOTS + s],
+                            ((aph[w] >> s) & 1) ^ 1);
+              product(a.w0 + static_cast<long long>(p) * 4 * CB * NP1 * 128,
+                      NP1, 1, 4 * CB, [&](int, int sb) {
+                for (int w = 0; w < NWG; ++w)
+                  a_boxes(w, sb, gi, p, nb, CBP, da, tl[w].lo + 64 * gi * G,
+                          64 * sb);
+              });
             }
           }
-          const float d0 = __fmul_rn(u[0], A3[f]);
-          const float d1 = __fmul_rn(u[1], A3[f + 1]);
-          st_shared_bf16x2(swz(s.halo, row, C * 2, col >> 3) + (col & 7) * 2,
-                           d0, d1);
-          if (p >= 0) {
-            simclr::store_bf16x2(dx + at, u[0], u[1]);
-            simclr::store_bf16x2(dy3_out + at, d0, d1);
+          product(a.w1, NP2, C / NP2, 9 * CB, no_a);
+          product(a.w2, NP3, F / NP3, CB, no_a);
+        } else if (MODE == BWD2) {
+          const int da = min(MAX_ASLOTS, round_boxes<C>(0, 0, 1, 0));
+          product(a.w0, NPB, C / NPB, 4 * CB, [&](int, int sb) {
+            for (int w = 0; w < NWG; ++w)
+              a_boxes(w, sb, 0, 0, 1, 0, da, tl[w].p0, 64 * sb);
+          });
+        } else {
+          for (int w = 0; w < NWG; ++w) {
+            uint64_t* hf = &afull_of(w)[2 * MAX_ASLOTS];
+            mbar_expect_tx(hf, g.hb * CB * BOX);
+            for (int cb = 0; cb < CB; ++cb)
+              for (int i = 0; i < g.hb; ++i)
+                tma_load_2d(smem + w * K::WGB + cb * ROWS * 128 + i * BOX,
+                            &amap, hf, 64 * cb, tl[w].lo + 64 * i);
           }
+          product(a.w0, NPB, C / NPB, 9 * CB, no_a);
+          product(a.w1, NP3, F / NP3, CB, no_a);
         }
       }
-      add_column_sums<CW>(sa, sb, s, s.blk + j * C, s.blk + F + j * C);
-      gemm<CW>(da2, CW, w3t + j * C, F, s, [](int, int) {},
-               [&](int st, int, int ks) {
-                 return rows_a_addr<CW>(s.halo, st, ks);
-               });
     }
-    float sa[8][2] = {}, sb[8][2] = {};
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int p = out_px(g, r0, wm * 16 + (lane >> 2) + 8 * h2).p;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int col = wn * 64 + ni * 8 + 2 * (lane & 3);
-        float d[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float y = y2[ni][2 * h2 + e];
-          const float u =
-              (p >= 0 && pre_affine(y, A2[col + e], B2[col + e]) > 0.f)
-                  ? da2[ni][2 * h2 + e]
-                  : 0.f;
-          sa[ni][e] += u * y;
-          sb[ni][e] += u;
-          d[e] = __fmul_rn(u, A2[col + e]);
-        }
-        if (p >= 0)
-          simclr::store_bf16x2(dy2_out + static_cast<long long>(p) * C + col,
-                               d[0], d[1]);
-      }
-    }
-    add_column_sums<CW>(sa, sb, s, s.blk + 2 * F, s.blk + 2 * F + C);
-  }
-  float* mine = part + static_cast<long long>(blockIdx.x) * (4 * C + 2 * F);
-  for (int i = threadIdx.x; i < 2 * C; i += THREADS)
-    mine[2 * C + i] = s.blk[2 * F + i];
-  for (int i = threadIdx.x; i < 2 * F; i += THREADS)
-    mine[4 * C + i] = s.blk[i];
-}
+  } else {
+    // Consumers: warp wr owns rows 16 wr .. 16 wr + 15 of the tile; this
+    // thread rows r0 and r0 + 8, columns 8 jj + 2 q and + 1.
+    const int wg = warp >> 2, wr = warp & 3, wtid = tid & 127;
+    unsigned char* buf = smem + wg * K::WGB;
+    unsigned char* act = buf + K::BUF;
+    uint64_t* afull = afull_of(wg);
+    uint64_t* aempty = afull + MAX_ASLOTS;
+    uint64_t* hfull = afull + 2 * MAX_ASLOTS;
+    uint64_t* bfree = hfull + 1;
+    Ctx<C> cx{smem, buf, act, wfull, wempty, afull, aempty, &g,
+              smem_addr(smem + K::ZERO), lane, wr, lane & 3,
+              16 * wr + (lane >> 2), 0, 0u};
+    const int q = cx.q, r0 = cx.r0;
+    const float *A1 = a.aff, *B1 = A1 + C, *A2 = B1 + C, *B2 = A2 + C;
+    const float *A3 = B2 + C, *B3 = A3 + F;
+    int tcount = 0;
+    auto wg_sync = [&]() { named_barrier(1 + wg, 128); };
+    // This warp is done with buf (its last read, the 3x3 product's
+    // gather, is over): the producer may bring the next tile's A there.
+    auto buf_free = [&]() {
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bfree);
+    };
+    auto run_pass = [&](int np, int nsb, int da, auto issue) {
+      consume_pass<C>(cx, np, nsb, da, issue);
+    };
 
-// B6b, second step: da1 = conv3x3^T(dy2), y1, u1, dA1/dB1, dy1, and
-// dx = bf16(dy1 w1^T + u3) with u3 read from dx.
-template <int CW>
-__global__ void __launch_bounds__(THREADS, 1)
-bottleneck_bwd_b_kernel(const bf16* __restrict__ x,
-                        const bf16* __restrict__ wp,
-                        const float* __restrict__ aff, bf16* __restrict__ dx,
-                        const bf16* __restrict__ dy2,
-                        bf16* __restrict__ dy1_out, float* __restrict__ part,
-                        Geo g) {
-  constexpr int C = Smem<CW>::C, F = 4 * C;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<CW> s(smem, g.mh);
-  const bf16* w1 = wp;
-  const bf16* w1t = wp + C * F + 9 * C * C + F * C;     // (F, C)
-  const bf16* w2r = w1t + F * C;                        // (C, 9C)
-  const float *A1 = aff, *B1 = aff + C;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / CW, wn = warp % CW;
-  init_block<CW>(s, 2 * C);   // [dA1 | dB1]
-  for (int tile = blockIdx.x; tile < g.tiles; tile += gridDim.x) {
-    const int r0 = tile * g.r;
-    // dy2 on the halo rows (zeros outside the batch) into s.halo.
-    for (int i = tid; i < g.mh * (C / 8); i += THREADS) {
-      const int j = i / (C / 8), q = i % (C / 8);
-      const int p = halo_px(g, r0, j);
-      cp_async16(swz(s.halo, j, C * 2, q),
-                 p >= 0 ? dy2 + static_cast<long long>(p) * C + q * 8 : dy2,
-                 p >= 0);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    float da1[8][4];
-    conv3x3_tile<CW>(da1, w2r, g, r0, s);
-    GlobalA<CW> ga;
-    ga.src = x;
-    ga.ld = F;
-    ga.ast = s.ast;
-#pragma unroll
-    for (int k = 0; k < GlobalA<CW>::ROWS; ++k)
-      ga.px[k] = out_px(g, r0, (tid >> 3) + 32 * k).p;
-    float y1[8][4];
-    zero_acc(y1);
-    gemm<CW>(y1, 4 * CW, w1, F, s, ga, [&](int, int buf, int ks) {
-      return staged_a_addr<CW>(s.ast, buf, ks);
-    });
-    float sa[8][2] = {}, sb[8][2] = {};
-#pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int row = wm * 16 + (lane >> 2) + 8 * h2;
-      const int p = out_px(g, r0, row).p;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int col = wn * 64 + ni * 8 + 2 * (lane & 3);
-        float d[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float y = y1[ni][2 * h2 + e];
-          const float u =
-              (p >= 0 && pre_affine(y, A1[col + e], B1[col + e]) > 0.f)
-                  ? da1[ni][2 * h2 + e]
-                  : 0.f;
-          sa[ni][e] += u * y;
-          sb[ni][e] += u;
-          d[e] = __fmul_rn(u, A1[col + e]);
-        }
-        st_shared_bf16x2(swz(s.halo, row, C * 2, col >> 3) + (col & 7) * 2,
-                         d[0], d[1]);
-        if (p >= 0)
-          simclr::store_bf16x2(dy1_out + static_cast<long long>(p) * C + col,
-                               d[0], d[1]);
-      }
-    }
-    add_column_sums<CW>(sa, sb, s, s.blk, s.blk + C);
-    for (int j = 0; j < 4; ++j) {
-      float acc[8][4];
-      zero_acc(acc);
-      gemm<CW>(acc, CW, w1t + static_cast<long long>(j) * C * C, C, s,
-               [](int, int) {},
-               [&](int st, int, int ks) {
-                 return rows_a_addr<CW>(s.halo, st, ks);
-               });
+    for (int grp = cid; grp < g.groups; grp += ncl, ++tcount) {
+      const int tile = tile_of(grp, wg);
+      const Tile tl = tile_at(g, tile);
+      B6_MARK(0);
+      // This warp's row of affine partial sums (tiles past the batch have
+      // none): [dA1 dB1 dA2 dB2 dA3 dB3].
+      float* prow = tile < g.tiles
+                        ? a.part + (static_cast<long long>(tile) * 4 + wr) *
+                                       (4 * C + 2 * F)
+                        : nullptr;
+      // This thread's pixels (rows r0, r0 + 8 of the tile) and whether
+      // they exist; the pixel of a row past the tile is clamped (not
+      // stored).
+      long long px[2];
+      bool ok[2];
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
-        const int p = out_px(g, r0, wm * 16 + (lane >> 2) + 8 * h2).p;
-        if (p < 0) continue;
+        ok[h2] = r0 + 8 * h2 < tl.t;
+        px[h2] = tl.p0 + min(r0 + 8 * h2, max(tl.t - 1, 0));
+      }
+      if (MODE == FWD || MODE == BWD1) {
+        // conv1 on the halo, in rounds of up to G blocks -> a1 in buf.
+        for (int gi = 0; gi * G < g.hb; ++gi) {
+          const int nb = min(G, g.hb - gi * G);
+          for (int p = 0; p < C / NP1; ++p) {
+            float acc[G][NP1 / 2];
+            const int da =
+                min(MAX_ASLOTS, round_boxes<C>(gi, p, nb, CBP) / nb);
 #pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const int f = j * C + wn * 64 + ni * 8 + 2 * (lane & 3);
-          const long long at = static_cast<long long>(p) * F + f;
-          const float2 u3 = ld_bf16x2(dx + at);
-          simclr::store_bf16x2(dx + at, __fadd_rn(acc[ni][2 * h2], u3.x),
-                               __fadd_rn(acc[ni][2 * h2 + 1], u3.y));
+            for (int bl = 0; bl < G; ++bl) start_acc(acc[bl]);
+            run_pass(NP1, 4 * CB, da,
+                     [&](int sb, const unsigned char* wb, int as) {
+              const uint64_t db = desc_sw128(wb, 16, 1024);
+#pragma unroll
+              for (int bl = 0; bl < G; ++bl)
+                if (bl < nb) {
+                  const uint64_t dab = desc_sw128(
+                      buf + round_box<C>(gi, p, nb, CBP, as * nb + bl), 16,
+                      1024);
+#pragma unroll
+                  for (int ks = 0; ks < 4; ++ks)
+                    wgmma_ss<0, 0>(acc[bl], dab + 2 * ks, db + 2 * ks, 1);
+                }
+            });
+#pragma unroll
+            for (int bl = 0; bl < G; ++bl) fence_operands(acc[bl]);
+            B6_MARK(1);
+            wg_sync();
+#pragma unroll
+            for (int bl = 0; bl < G; ++bl) {
+              if (bl >= nb) continue;
+              SRow sr[2];
+              int ti[2];   // the row's tile pixel, a1 and y1 kept if in [0, t)
+#pragma unroll
+              for (int h2 = 0; h2 < 2; ++h2) {
+                const int j = (gi * G + bl) * 64 + r0 + 8 * h2;
+                ti[h2] = j - g.halo_off;
+                sr[h2] = srow(buf, ROWS * 128, j, p * NP1, q);
+              }
+#pragma unroll
+              for (int jj = 0; jj < NP1 / 8; ++jj) {
+                if (jj % EB == 0) epilogue_fence();
+                const int col = p * NP1 + 8 * jj + 2 * q;
+                const float2 av = __ldg(reinterpret_cast<const float2*>(A1 + col));
+                const float2 bv = __ldg(reinterpret_cast<const float2*>(B1 + col));
+#pragma unroll
+                for (int h2 = 0; h2 < 2; ++h2) {
+                  const float y0 = acc[bl][4 * jj + 2 * h2];
+                  const float y1v = acc[bl][4 * jj + 2 * h2 + 1];
+                  const float v0 = fmaxf(pre_affine(y0, av.x, bv.x), 0.f);
+                  const float v1 = fmaxf(pre_affine(y1v, av.y, bv.y), 0.f);
+                  sts_bf16x2(sr[h2].at(jj), v0, v1);
+                  if (MODE == BWD1 && ti[h2] >= 0 && ti[h2] < tl.t) {
+                    const long long at =
+                        static_cast<long long>(tl.p0 + ti[h2]) * C + col;
+                    st_bf16x2(a.a1 + at, v0, v1);
+                    *reinterpret_cast<float2*>(a.y1 + at) =
+                        make_float2(y0, y1v);
+                  }
+                }
+              }
+            }
+          }
+        }
+        wg_sync();
+        B6_MARK(2);
+        // conv2 -> a2 in act.
+        for (int p = 0; p < C / NP2; ++p) {
+          float acc[NP2 / 2];
+          conv3x3_pass<C>(cx, acc, tl);
+          B6_MARK(3);
+          SRow sr[2];
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+            sr[h2] = srow(act, BOX, r0 + 8 * h2, p * NP2, q);
+#pragma unroll
+          for (int jj = 0; jj < NP2 / 8; ++jj) {
+            if (jj % EB == 0) epilogue_fence();
+            const int col = p * NP2 + 8 * jj + 2 * q;
+            const float2 av = __ldg(reinterpret_cast<const float2*>(A2 + col));
+            const float2 bv = __ldg(reinterpret_cast<const float2*>(B2 + col));
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const float y0 = acc[4 * jj + 2 * h2];
+              const float y1v = acc[4 * jj + 2 * h2 + 1];
+              const float v0 = fmaxf(pre_affine(y0, av.x, bv.x), 0.f);
+              const float v1 = fmaxf(pre_affine(y1v, av.y, bv.y), 0.f);
+              sts_bf16x2(sr[h2].at(jj), v0, v1);
+              if (MODE == BWD1 && ok[h2]) {
+                const long long at = px[h2] * C + col;
+                st_bf16x2(a.a2 + at, v0, v1);
+                *reinterpret_cast<float2*>(a.y2 + at) = make_float2(y0, y1v);
+              }
+            }
+          }
+        }
+        buf_free();
+        fence_proxy_async();
+        wg_sync();
+        B6_MARK(4);
+        // conv3 and the output (FWD) or u3, dA3 / dB3, dy3 (BWD1).
+        for (int p = 0; p < F / NP3; ++p) {
+          // x for the epilogue: loaded before the products in B6f with one
+          // warpgroup a block; else in the epilogue (no registers to hold
+          // it across the products).
+          uint32_t xr[2][NP3 / 8];
+          if (XPRE) load_rows<F>(cx, xr, a.x, tl, p * NP3);
+          float acc[NP3 / 2];
+          act_pass<C>(cx, acc);
+          B6_MARK(5);
+          bf16* orow[2];
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+            orow[h2] = (MODE == FWD ? a.out : a.dy3) + px[h2] * F + p * NP3;
+          uint32_t bits[2] = {0, 0}, pk[2][4];   // pk: FWD's packed output
+#pragma unroll
+          for (int jj = 0; jj < NP3 / 8; ++jj) {
+            if (jj % EB == 0) epilogue_fence();
+            const int f = p * NP3 + 8 * jj + 2 * q;
+            const float2 av = __ldg(reinterpret_cast<const float2*>(A3 + f));
+            const float2 bv = __ldg(reinterpret_cast<const float2*>(B3 + f));
+            float2 sa = make_float2(0.f, 0.f), sbv = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const float2 xv = unpack_bf16x2(
+                  XPRE     ? xr[h2][jj]
+                  : ok[h2] ? __ldg(reinterpret_cast<const uint32_t*>(
+                                 a.x + px[h2] * F + f))
+                           : 0u);
+              const float y0 = acc[4 * jj + 2 * h2];
+              const float y1v = acc[4 * jj + 2 * h2 + 1];
+              const float pre0 = __fadd_rn(pre_affine(y0, av.x, bv.x), xv.x);
+              const float pre1 = __fadd_rn(pre_affine(y1v, av.y, bv.y), xv.y);
+              if (MODE == FWD) {
+                pk[h2][jj & 3] = pack_bf16x2(fmaxf(pre0, 0.f), fmaxf(pre1, 0.f));
+              } else {
+                const float2 gv = unpack_bf16x2(
+                    ok[h2] ? __ldg(reinterpret_cast<const uint32_t*>(
+                                 a.gy + px[h2] * F + f))
+                           : 0u);
+                const bool m0 = ok[h2] && pre0 > 0.f;
+                const bool m1 = ok[h2] && pre1 > 0.f;
+                const float u0 = m0 ? gv.x : 0.f, u1 = m1 ? gv.y : 0.f;
+                const int bit = (jj * 2 + h2) * 2;
+                bits[bit >> 5] |= (m0 ? 1u : 0u) << (bit & 31);
+                bits[bit >> 5] |= (m1 ? 1u : 0u) << ((bit + 1) & 31);
+                sa.x += u0 * y0;
+                sa.y += u1 * y1v;
+                sbv.x += u0;
+                sbv.y += u1;
+                if (ok[h2])
+                  st_bf16x2(orow[h2] + 8 * jj + 2 * q, __fmul_rn(u0, av.x),
+                            __fmul_rn(u1, av.y));
+              }
+            }
+            // The output in 16-byte stores (BWD1's dy3 keeps a store a
+            // pair: the quad's exchange cost it registers, which spilled).
+            if (MODE == FWD && (jj & 3) == 3)
+#pragma unroll
+              for (int h2 = 0; h2 < 2; ++h2)
+                store_quad(orow[h2] + 8 * (jj - 3), pk[h2], lane, ok[h2]);
+            if (MODE == BWD1 && prow)
+              store_sums(prow, 4 * C, 4 * C + F, f, sa, sbv, lane);
+          }
+          if (MODE == BWD1 && prow)
+            a.mask[(static_cast<long long>(tile) * (F / NP3) + p) * 128 +
+                   wtid] = make_uint2(bits[0], bits[1]);
+          B6_MARK(6);
+        }
+      } else if (MODE == BWD2) {
+        // da2 = dy3 w3^T; u2, dA2 / dB2, dy2.
+        const int da = min(MAX_ASLOTS, round_boxes<C>(0, 0, 1, 0));
+        for (int p = 0; p < C / NPB; ++p) {
+          float acc[NPB / 2];
+          start_acc(acc);
+          run_pass(NPB, 4 * CB, da,
+                   [&](int sb, const unsigned char* wb, int as) {
+            const uint64_t dab =
+                desc_sw128(buf + round_box<C>(0, 0, 1, 0, as), 16, 1024);
+            const uint64_t db = desc_sw128(wb, 16, 1024);
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+              wgmma_ss<0, 0>(acc, dab + 2 * ks, db + 2 * ks, 1);
+          });
+          fence_operands(acc);
+          B6_MARK(1);
+          bf16* drow[2];
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+            drow[h2] = a.dy2 + px[h2] * C + p * NPB + 2 * q;
+#pragma unroll
+          for (int jj = 0; jj < NPB / 8; ++jj) {
+            if (jj % EB == 0) epilogue_fence();
+            const int col = p * NPB + 8 * jj + 2 * q;
+            const float2 av = __ldg(reinterpret_cast<const float2*>(A2 + col));
+            const float2 bv = __ldg(reinterpret_cast<const float2*>(B2 + col));
+            float2 sa = make_float2(0.f, 0.f), sbv = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const float2 y =
+                  ok[h2] ? __ldg(reinterpret_cast<const float2*>(
+                               a.y2 + px[h2] * C + col))
+                         : make_float2(0.f, 0.f);
+              const float u0 = ok[h2] && pre_affine(y.x, av.x, bv.x) > 0.f
+                                   ? acc[4 * jj + 2 * h2] : 0.f;
+              const float u1 = ok[h2] && pre_affine(y.y, av.y, bv.y) > 0.f
+                                   ? acc[4 * jj + 2 * h2 + 1] : 0.f;
+              sa.x += u0 * y.x;
+              sa.y += u1 * y.y;
+              sbv.x += u0;
+              sbv.y += u1;
+              if (ok[h2])
+                st_bf16x2(drow[h2] + 8 * jj, __fmul_rn(u0, av.x),
+                          __fmul_rn(u1, av.y));
+            }
+            if (prow) store_sums(prow, 2 * C, 3 * C, col, sa, sbv, lane);
+          }
+          B6_MARK(2);
+        }
+      } else {
+        // dy2 and its halo -> buf; da1 = conv3x3^T(dy2); u1, dA1 / dB1,
+        // dy1 (global and act); dx = bf16(dy1 w1^T + g [pre3 > 0]).
+        mbar_wait(hfull, tcount & 1);
+        B6_MARK(1);
+        for (int p = 0; p < C / NPB; ++p) {
+          float acc[NPB / 2];
+          conv3x3_pass<C>(cx, acc, tl);
+          B6_MARK(2);
+          SRow sr[2];
+          bf16* drow[2];
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            sr[h2] = srow(act, BOX, r0 + 8 * h2, p * NPB, q);
+            drow[h2] = a.dy1 + px[h2] * C + p * NPB + 2 * q;
+          }
+#pragma unroll
+          for (int jj = 0; jj < NPB / 8; ++jj) {
+            if (jj % EB == 0) epilogue_fence();
+            const int col = p * NPB + 8 * jj + 2 * q;
+            const float2 av = __ldg(reinterpret_cast<const float2*>(A1 + col));
+            const float2 bv = __ldg(reinterpret_cast<const float2*>(B1 + col));
+            float2 sa = make_float2(0.f, 0.f), sbv = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const float2 y =
+                  ok[h2] ? __ldg(reinterpret_cast<const float2*>(
+                               a.y1 + px[h2] * C + col))
+                         : make_float2(0.f, 0.f);
+              const float u0 = ok[h2] && pre_affine(y.x, av.x, bv.x) > 0.f
+                                   ? acc[4 * jj + 2 * h2] : 0.f;
+              const float u1 = ok[h2] && pre_affine(y.y, av.y, bv.y) > 0.f
+                                   ? acc[4 * jj + 2 * h2 + 1] : 0.f;
+              sa.x += u0 * y.x;
+              sa.y += u1 * y.y;
+              sbv.x += u0;
+              sbv.y += u1;
+              const float d0 = __fmul_rn(u0, av.x), d1 = __fmul_rn(u1, av.y);
+              sts_bf16x2(sr[h2].at(jj), d0, d1);
+              if (ok[h2]) st_bf16x2(drow[h2] + 8 * jj, d0, d1);
+            }
+            if (prow) store_sums(prow, 0, C, col, sa, sbv, lane);
+          }
+        }
+        buf_free();
+        fence_proxy_async();
+        wg_sync();
+        B6_MARK(3);
+        for (int p = 0; p < F / NP3; ++p) {
+
+          const uint2 m = prow ? a.mask[(static_cast<long long>(tile) *
+                                             (F / NP3) + p) * 128 + wtid]
+                               : make_uint2(0, 0);
+          float acc[NP3 / 2];
+          act_pass<C>(cx, acc);
+          B6_MARK(4);
+          bf16* orow[2];
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+            orow[h2] = a.out + px[h2] * F + p * NP3;
+          const uint32_t bits[2] = {m.x, m.y};
+#pragma unroll
+          for (int jj = 0; jj < NP3 / 8; ++jj) {
+            if (jj % EB == 0) epilogue_fence();
+            const int f = p * NP3 + 8 * jj + 2 * q;
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              if (!ok[h2]) continue;
+              const float2 gv = unpack_bf16x2(__ldg(
+                  reinterpret_cast<const uint32_t*>(a.gy + px[h2] * F + f)));
+              const int bit = (jj * 2 + h2) * 2;
+              const float u0 = (bits[bit >> 5] >> (bit & 31)) & 1 ? gv.x : 0.f;
+              const float u1 =
+                  (bits[bit >> 5] >> ((bit + 1) & 31)) & 1 ? gv.y : 0.f;
+              st_bf16x2(orow[h2] + 8 * jj + 2 * q,
+                        __fadd_rn(acc[4 * jj + 2 * h2], u0),
+                        __fadd_rn(acc[4 * jj + 2 * h2 + 1], u1));
+            }
+          }
+          B6_MARK(5);
         }
       }
     }
   }
-  float* mine = part + static_cast<long long>(blockIdx.x) * (4 * C + 2 * F);
-  for (int i = threadIdx.x; i < 2 * C; i += THREADS) mine[i] = s.blk[i];
-}
-
-// Weight gradient over one pixel range: partial[chunk][tap][m][n] =
-// sum over pixels p of the range of a[p][m] * b[p shifted by tap][n], for
-// the 64 x 64 output tile blockIdx.x (tap 3 ky + kx shifts by (ky - 1,
-// kx - 1) within the image when taps == 9; zero outside it).
-__global__ void __launch_bounds__(WG_THREADS)
-bottleneck_wgrad_kernel(const bf16* __restrict__ a, int lda,
-                        const bf16* __restrict__ b, int ldb,
-                        float* __restrict__ partial, int mtot, int ntot,
-                        int taps, int pixels, int h, int w, int per_chunk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t base = smem_addr(smem);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1, wn = warp >> 1;   // 32 x 32 a warp
-  const int tiles_n = ntot / WG_T;
-  const int m0 = (blockIdx.x / tiles_n) * WG_T;
-  const int n0 = (blockIdx.x % tiles_n) * WG_T;
-  const int tap = blockIdx.z;
-  const int dy = taps == 9 ? tap / 3 - 1 : 0, dx = taps == 9 ? tap % 3 - 1 : 0;
-  const int begin = blockIdx.y * per_chunk;
-  const int end = begin + per_chunk < pixels ? begin + per_chunk : pixels;
-  const int steps = end > begin ? (end - begin + WG_T - 1) / WG_T : 0;
-
-  // This thread copies chunk tid % 8 of pixel rows tid / 8 + 16 k of both
-  // tiles (a at 0, b at WG_T rows) of a stage.
-  auto load = [&](int st) {
-    const uint32_t buf = base + (st & 1) * 2 * WG_T * 128;
-    const int q = tid & 7;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int r = (tid >> 3) + 16 * k, p = begin + st * WG_T + r;
-      const bool ok = p < end;
-      cp_async16(swz(buf, r, 128, q),
-                 ok ? a + static_cast<long long>(p) * lda + m0 + q * 8 : a,
-                 ok);
-      bool okb = ok;
-      long long pb = p;
-      if (ok && taps == 9) {
-        const int yy = (p / w) % h + dy, xx = p % w + dx;
-        okb = yy >= 0 && yy < h && xx >= 0 && xx < w;
-        pb = p + dy * w + dx;
-      }
-      cp_async16(swz(buf, WG_T + r, 128, q),
-                 okb ? b + pb * ldb + n0 + q * 8 : b, okb);
-    }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  if (steps > 0) load(0);
-  cp_async_commit();
-  for (int st = 0; st < steps; ++st) {
-    if (st + 1 < steps) load(st + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const uint32_t at = base + (st & 1) * 2 * WG_T * 128;
-    const uint32_t bt = at + WG_T * 128;
-#pragma unroll
-    for (int ks = 0; ks < WG_T / 16; ++ks) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4_t(swz(at, ks * 16 + ((lane >> 4) << 3) + (lane & 7), 128,
-                      wm * 4 + mi * 2 + ((lane >> 3) & 1)),
-                  af[mi]);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t bq[4];
-        ldsm_x4_t(swz(bt, ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7), 128,
-                      wn * 4 + nj * 2 + (lane >> 4)),
-                  bq);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * nj], af[mi], bq[0], bq[1]);
-          mma_bf16(acc[mi][2 * nj + 1], af[mi], bq[2], bq[3]);
-        }
-      }
-    }
-    __syncthreads();
+  if (CL > 1) {
+    __syncwarp();
+    cluster_sync();
   }
-  cp_async_wait<0>();
+}
 
-  float* out = partial + (static_cast<long long>(blockIdx.y) * taps + tap) *
-                             mtot * ntot;
+// ---------------------------------------------------------------------------
+// Weight gradients dw3 = dy3^T a2 and dw1 = x^T dy1
+// ---------------------------------------------------------------------------
+
+constexpr int WG_THREADS = 288;     // warpgroups 0-1 consume, warp 8 loads
+constexpr int WG_STAGES = 4;
+
+struct Wgrad {
+  int m, n;       // D is m x n: m columns of A, n of B (m % 128 == 0)
+  int nt;         // columns of D a block: min(n, 256)
+  int tiles;      // (m / 128) x (n / nt)
+  int items;      // 64-pixel steps of the pixels
+  int ranges;
+};
+
+Wgrad plan_wgrad(int m, int n, int pixels, int sms) {
+  Wgrad p;
+  p.m = m;
+  p.n = n;
+  p.nt = std::min(n, 256);
+  p.tiles = (m / 128) * (n / p.nt);
+  p.items = cdiv(pixels, 64);
+  p.ranges = std::max(1, std::min(p.items, cdiv(sms, p.tiles)));
+  return p;
+}
+
+// One range's partial D[m][n] = sum over its pixels of A[p][m] B[p][n],
+// for the 128 x NT tile blockIdx.x % tiles of range blockIdx.x / tiles.
+template <int NT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+bottleneck_wgrad_kernel(const __grid_constant__ CUtensorMap amap,
+                        const __grid_constant__ CUtensorMap bmap,
+                        float* __restrict__ partial, Wgrad w) {
+  constexpr int STAGE = 2 * BOX + NT * 128;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * STAGE);
+  uint64_t* empty = full + WG_STAGES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = warp_index();
+  const int r = blockIdx.x / w.tiles, t = blockIdx.x - r * w.tiles;
+  const int mt = t / (w.n / NT), nt = t - mt * (w.n / NT);
+  const int i0 = static_cast<int>(static_cast<long long>(w.items) * r /
+                                  w.ranges);
+  const int i1 = static_cast<int>(static_cast<long long>(w.items) *
+                                  (r + 1) / w.ranges);
+  if (tid == 0) {
+    if (smem_addr(smem) & 1023) __trap();
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (warp == 8) {
+    if (lane != 0) return;
+    tma_prefetch_map(&amap);
+    tma_prefetch_map(&bmap);
+    for (int i = i0; i < i1; ++i) {
+      const int k = i - i0, s = k % WG_STAGES;
+      mbar_wait(&empty[s], ((k / WG_STAGES) & 1) ^ 1);
+      mbar_expect_tx(&full[s], STAGE);
+      unsigned char* dst = smem + s * STAGE;
+      for (int h = 0; h < 2; ++h)
+        tma_load_2d(dst + h * BOX, &amap, &full[s], mt * 128 + 64 * h,
+                    64 * i);
+      for (int j = 0; j < NT / 64; ++j)
+        tma_load_2d(dst + 2 * BOX + j * BOX, &bmap, &full[s],
+                    nt * NT + 64 * j, 64 * i);
+    }
+    return;
+  }
+  const int wg = warp >> 2, wr = warp & 3;
+  float acc[NT / 2];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int e = 0; e < NT / 2; ++e) acc[e] = 0.f;
+  fence_operands(acc);
+  wgmma_fence();
+  for (int i = i0; i < i1; ++i) {
+    const int k = i - i0, s = k % WG_STAGES;
+    mbar_wait(&full[s], (k / WG_STAGES) & 1);
+    unsigned char* st = smem + s * STAGE;
+    const uint64_t da = desc_sw128(st + wg * BOX, BOX, 1024);
+    const uint64_t db = desc_sw128(st + 2 * BOX, BOX, 1024);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm * 32 + mi * 16 + (lane >> 2) + half * 8;
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<1, 1>(acc, da + ((kk * 2048) >> 4), db + ((kk * 2048) >> 4),
+                     1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (k > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(k - 1) % WG_STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  float* out = partial + static_cast<long long>(r) * w.m * w.n;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + wn * 32 + ni * 8 + (lane & 3) * 2;
-        *reinterpret_cast<float2*>(out + static_cast<long long>(m) * ntot +
-                                   n) =
-            make_float2(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
-      }
+  for (int jj = 0; jj < NT / 8; ++jj)
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int m = mt * 128 + 64 * wg + 16 * wr + (lane >> 2) + 8 * h2;
+      const int n = nt * NT + 8 * jj + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(out + static_cast<long long>(m) * w.n + n) =
+          make_float2(acc[4 * jj + 2 * h2], acc[4 * jj + 2 * h2 + 1]);
     }
 }
 
-// out[(m * ntot + n) * taps + tap] = sum over chunks, in order, of
-// partial[chunk][tap][m][n].
+// out[dst(j)] = sum over rows r of in[r][j], in the order of r, for rows
+// [chunk y, chunk (y + 1)) (grid.y chunks: out holds a row per chunk, j
+// in place) or, with one chunk, into out at dst(j): for j = (i0 b + i1) c
+// + i2, dst(j) = (i1 c + i2) a + i0 (a = 1: j itself).
 __global__ void __launch_bounds__(256)
-bottleneck_wgrad_reduce(const float* __restrict__ partial, int chunks,
-                        int taps, int mtot, int ntot,
-                        float* __restrict__ out) {
-  const long long total = static_cast<long long>(taps) * mtot * ntot;
+bottleneck_sum_rows(const float* __restrict__ in, int rows, long long cols,
+                    int chunk, float* __restrict__ out, int ma, int mb,
+                    int mc) {
   const long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
-  if (j >= total) return;
-  float acc = 0.f;
-  for (int k = 0; k < chunks; ++k) acc += partial[k * total + j];
-  const long long mn = static_cast<long long>(mtot) * ntot;
-  const int tap = static_cast<int>(j / mn);
-  out[(j % mn) * taps + tap] = acc;
-}
-
-// out[j] = sum over blocks, in order, of part[block][j].
-__global__ void __launch_bounds__(256)
-bottleneck_affine_reduce(const float* __restrict__ part, int blocks,
-                         int cols, float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= cols) return;
+  const int r0 = blockIdx.y * chunk, r1 = min(rows, r0 + chunk);
   float acc = 0.f;
-  for (int k = 0; k < blocks; ++k)
-    acc += part[static_cast<long long>(k) * cols + j];
-  out[j] = acc;
+#pragma unroll 4
+  for (int r = r0; r < r1; ++r) acc += in[r * cols + j];
+  if (gridDim.y > 1) {
+    out[blockIdx.y * cols + j] = acc;
+  } else {
+    const long long i2 = j % mc, i01 = j / mc, i1 = i01 % mb, i0 = i01 / mb;
+    out[(i1 * mc + i2) * ma + i0] = acc;
+  }
 }
 
-bool make_geo(int n, int h, int w, int c, Geo* g) {
-  if (n < 1 || h < 1 || w < 1 || (c != 64 && c != 128 && c != 256 &&
-                                  c != 512))
-    return false;
-  const int m = TILE_ELEMS / c;
-  if (w > m || static_cast<long long>(n) * h * w * 4 * c >= (1LL << 31))
-    return false;
-  g->h = h;
-  g->w = w;
-  g->rows = n * h;
-  g->r = m / w;
-  g->mt = g->r * w;
-  g->mh = (g->r + 2) * w;
-  g->tiles = (g->rows + g->r - 1) / g->r;
-  return true;
+// out[dst(j)] = sum over rows of in[r][j] in a fixed order: up to 256
+// rows in one pass, more in levels of 64 rows through s1 and s2 (rows /
+// 64 and rows / 4096 rows of cols).
+cudaError_t sum_rows(const float* in, int rows, long long cols, float* out,
+                     int ma, int mb, int mc, float* s1, float* s2,
+                     cudaStream_t s) {
+  const unsigned bx = static_cast<unsigned>((cols + 255) / 256);
+  float* level[2] = {s1, s2};
+  for (int k = 0; rows > 256; k ^= 1) {
+    const int chunks = cdiv(rows, 64);
+    bottleneck_sum_rows<<<dim3(bx, chunks), 256, 0, s>>>(
+        in, rows, cols, 64, level[k], 1, 1, 1);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    in = level[k];
+    rows = chunks;
+  }
+  bottleneck_sum_rows<<<dim3(bx, 1), 256, 0, s>>>(in, rows, cols, rows, out,
+                                                  ma, mb, mc);
+  return cudaGetLastError();
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return sms;
-}
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
 
 long long align256(long long b) { return (b + 255) / 256 * 256; }
 
-// Weight-gradient problems: (mtot, ntot, taps) -> pixel ranges.
-struct Wgrad {
-  int mtot, ntot, taps, chunks, per;
-};
-
-Wgrad plan_wgrad(int mtot, int ntot, int taps, int pixels) {
-  const int tiles = (mtot / WG_T) * (ntot / WG_T) * taps;
-  int chunks = (WG_TARGET_BLOCKS + tiles - 1) / tiles;
-  const int max_chunks = (pixels + WG_T - 1) / WG_T;
-  if (chunks > WG_MAX_CHUNKS) chunks = WG_MAX_CHUNKS;
-  if (chunks > max_chunks) chunks = max_chunks;
-  int per = (pixels + chunks - 1) / chunks;
-  per = (per + WG_T - 1) / WG_T * WG_T;
-  return {mtot, ntot, taps, (pixels + per - 1) / per, per};
+// Blocks of a tile kernel (a pair of tiles each block at C <= 128, each
+// cluster of two at C >= 256), up to one block an SM.
+int grid_for(const Geo& g, int c, int sms) {
+  const int cl = c <= 128 ? 1 : 2;
+  return cl * std::max(1, std::min(g.groups, sms / cl));
 }
 
-long long wgrad_bytes(const Wgrad& p) {
-  return static_cast<long long>(p.chunks) * p.taps * p.mtot * p.ntot * 4;
-}
-
-// Scratch of one backward call: a1, a2, dy2, dy1 (C wide), dy3 (F wide),
-// the per-block affine sums and the largest weight-gradient partial.
+// Scratch of one backward call (offsets into the workspace).
 struct Work {
-  long long a1, a2, dy2, dy1, dy3, part, wpart, total;
+  long long a1, a2, dy2, dy1, y1, y2, dy3, mask, part, s1, s2, wpart, total;
+  int part_rows;
 };
 
-Work plan_work(const Geo& g, int c, int sms) {
-  const long long px = static_cast<long long>(g.rows) * g.w;
-  const int pixels = static_cast<int>(px);
+int dw2_ranges(int n, int h, int w, int c, int sms);
+
+Work plan_work(const Geo& g, int n, int c, int sms) {
+  const long long px = g.pixels, f = 4LL * c, cols = 4 * c + 2 * f;
   Work k;
   long long off = 0;
-  k.a1 = off;
-  off += align256(px * c * 2);
-  k.a2 = off;
-  off += align256(px * c * 2);
-  k.dy2 = off;
-  off += align256(px * c * 2);
-  k.dy1 = off;
-  off += align256(px * c * 2);
-  k.dy3 = off;
-  off += align256(px * 4 * c * 2);
-  k.part = off;
-  off += align256(static_cast<long long>(sms) * 12 * c * 4);
-  k.wpart = off;
-  long long wp = wgrad_bytes(plan_wgrad(4 * c, c, 1, pixels));
-  const long long w2 = wgrad_bytes(plan_wgrad(c, c, 9, pixels));
-  const long long w1 = wgrad_bytes(plan_wgrad(c, 4 * c, 1, pixels));
-  if (w2 > wp) wp = w2;
-  if (w1 > wp) wp = w1;
-  off += align256(wp);
+  auto take = [&](long long bytes) {
+    const long long at = off;
+    off += align256(bytes);
+    return at;
+  };
+  k.a1 = take(px * c * 2);
+  k.a2 = take(px * c * 2);
+  k.dy2 = take(px * c * 2);
+  k.dy1 = take(px * c * 2);
+  k.y1 = take(px * c * 4);
+  k.y2 = take(px * c * 4);
+  k.dy3 = take(px * f * 2);
+  k.mask = take(2LL * g.groups * f * 8);   // a uint4 a thread, F pass, tile
+  k.part_rows = g.tiles * 4;   // a row a warp and tile
+  k.part = take(k.part_rows * cols * 4);
+  k.s1 = take(cdiv(k.part_rows, 64) * cols * 4);
+  k.s2 = take(cdiv(cdiv(k.part_rows, 64), 64) * cols * 4);
+  const Wgrad w3 = plan_wgrad(static_cast<int>(f), c, g.pixels, sms);
+  const int r2 = dw2_ranges(n, g.h, g.w, c, sms);
+  long long wp = static_cast<long long>(w3.ranges) * f * c * 4;
+  wp = std::max(wp, static_cast<long long>(r2) * 9 * c * c * 4);
+  k.wpart = take(wp);
   k.total = off;
   return k;
 }
 
-cudaError_t run_wgrad(const bf16* a, int lda, const bf16* b, int ldb,
-                      float* partial, float* out, const Wgrad& p,
-                      const Geo& g, cudaStream_t s) {
-  const dim3 grid((p.mtot / WG_T) * (p.ntot / WG_T), p.chunks, p.taps);
-  bottleneck_wgrad_kernel<<<grid, WG_THREADS, WG_SMEM, s>>>(
-      a, lda, b, ldb, partial, p.mtot, p.ntot, p.taps, g.rows * g.w, g.h,
-      g.w, p.per);
-  cudaError_t err = cudaGetLastError();
+template <int C, int MODE>
+cudaError_t launch_tile(const CUtensorMap& amap, const Args& a, int grid,
+                        cudaStream_t s) {
+  using K = Cfg<C>;
+  static simclr::SmemOptIn opt;
+  cudaError_t err = opt(bottleneck_tile_kernel<C, MODE>, K::SMEM);
   if (err != cudaSuccess) return err;
-  const long long total = static_cast<long long>(p.taps) * p.mtot * p.ntot;
-  bottleneck_wgrad_reduce<<<static_cast<int>((total + 255) / 256), 256, 0,
-                            s>>>(partial, p.chunks, p.taps, p.mtot, p.ntot,
-                                 out);
+  if (K::CL > 1)
+    return simclr::launch_clusters(bottleneck_tile_kernel<C, MODE>,
+                                   dim3(grid), dim3(K::THREADS), K::SMEM, s,
+                                   K::CL, amap, a);
+  bottleneck_tile_kernel<C, MODE><<<grid, K::THREADS, K::SMEM, s>>>(amap, a);
   return cudaGetLastError();
 }
 
-template <int CW>
-struct Opt {
-  static simclr::SmemOptIn fwd, bwd_a, bwd_b;
-};
-template <int CW>
-simclr::SmemOptIn Opt<CW>::fwd;
-template <int CW>
-simclr::SmemOptIn Opt<CW>::bwd_a;
-template <int CW>
-simclr::SmemOptIn Opt<CW>::bwd_b;
-
-// Dynamic shared memory for the largest halo a kernel may be launched
-// with (W = M), so that the once-per-device opt-in covers every call.
-template <int CW>
-int max_smem() {
-  constexpr int M = Smem<CW>::M;
-  return Smem<CW>::bytes(3 * M);
+template <int MODE>
+cudaError_t tile(int c, const CUtensorMap& amap, const Args& a, int grid,
+                 cudaStream_t s) {
+  switch (c) {
+    case 64: return launch_tile<64, MODE>(amap, a, grid, s);
+    case 128: return launch_tile<128, MODE>(amap, a, grid, s);
+    case 256: return launch_tile<256, MODE>(amap, a, grid, s);
+    default: return launch_tile<512, MODE>(amap, a, grid, s);
+  }
 }
 
-int grid_for(const Geo& g) {
-  const int sms = sm_count();
-  if (sms <= 0) return -1;
-  return g.tiles < sms ? g.tiles : sms;
-}
-
-template <int CW>
-int fwd_impl(const void* x, const void* wp, const void* aff, void* out,
-             const Geo& g, cudaStream_t s) {
-  cudaError_t err = Opt<CW>::fwd(bottleneck_fwd_kernel<CW>, max_smem<CW>());
+template <int NT>
+cudaError_t wgrad_launch(const CUtensorMap& am, const CUtensorMap& bm,
+                         float* partial, const Wgrad& w, cudaStream_t s) {
+  constexpr int smem = WG_STAGES * (2 * BOX + NT * 128) + 2 * WG_STAGES * 8;
+  static simclr::SmemOptIn opt;
+  cudaError_t err = opt(bottleneck_wgrad_kernel<NT>, smem);
   if (err != cudaSuccess) return err;
-  const int grid = grid_for(g);
-  if (grid < 0) return cudaErrorUnknown;
-  bottleneck_fwd_kernel<CW><<<grid, THREADS, Smem<CW>::bytes(g.mh), s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wp),
-      static_cast<const float*>(aff), static_cast<bf16*>(out), g);
+  bottleneck_wgrad_kernel<NT><<<w.ranges * w.tiles, WG_THREADS, smem, s>>>(
+      am, bm, partial, w);
   return cudaGetLastError();
 }
 
-template <int CW>
-int bwd_impl(const void* x, const void* gy, const void* wp, const void* aff,
-             void* work, void* dx, void* dw1, void* dw2, void* dw3,
-             void* daff, const Geo& g, cudaStream_t s) {
-  constexpr int C = Smem<CW>::C, F = 4 * C;
-  cudaError_t err = Opt<CW>::bwd_a(bottleneck_bwd_a_kernel<CW>,
-                                   max_smem<CW>());
+// D = A^T B over the pixels (A [P][m], B [P][n] bf16), summed over the
+// ranges into out at dst (see bottleneck_sum_rows).
+cudaError_t wgrad(const bf16* am, int m, const bf16* bm, int n, int pixels,
+                  float* partial, float* out, int ma, int mb, int mc,
+                  int sms, cudaStream_t s) {
+  CUtensorMap amap, bmap;
+  if (!simclr::matrix_tensor_map(&amap, am, pixels, m, 64) ||
+      !simclr::matrix_tensor_map(&bmap, bm, pixels, n, 64))
+    return cudaErrorInvalidValue;
+  const Wgrad w = plan_wgrad(m, n, pixels, sms);
+  cudaError_t err;
+  switch (w.nt) {
+    case 64: err = wgrad_launch<64>(amap, bmap, partial, w, s); break;
+    case 128: err = wgrad_launch<128>(amap, bmap, partial, w, s); break;
+    default: err = wgrad_launch<256>(amap, bmap, partial, w, s);
+  }
   if (err != cudaSuccess) return err;
-  err = Opt<CW>::bwd_b(bottleneck_bwd_b_kernel<CW>, max_smem<CW>());
-  if (err != cudaSuccess) return err;
-  const int sms = sm_count();
-  if (sms <= 0) return cudaErrorUnknown;
-  const int grid = g.tiles < sms ? g.tiles : sms;
-  const Work k = plan_work(g, C, sms);
-  unsigned char* base = static_cast<unsigned char*>(work);
-  bf16* a1 = reinterpret_cast<bf16*>(base + k.a1);
-  bf16* a2 = reinterpret_cast<bf16*>(base + k.a2);
-  bf16* dy2 = reinterpret_cast<bf16*>(base + k.dy2);
-  bf16* dy1 = reinterpret_cast<bf16*>(base + k.dy1);
-  bf16* dy3 = reinterpret_cast<bf16*>(base + k.dy3);
-  float* part = reinterpret_cast<float*>(base + k.part);
-  float* wpart = reinterpret_cast<float*>(base + k.wpart);
-  const int smem = Smem<CW>::bytes(g.mh);
-  const int pixels = g.rows * g.w;
-
-  bottleneck_bwd_a_kernel<CW><<<grid, THREADS, smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(gy),
-      static_cast<const bf16*>(wp), static_cast<const float*>(aff),
-      static_cast<bf16*>(dx), a1, a2, dy2, dy3, part, g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  err = run_wgrad(dy3, F, a2, C, wpart, static_cast<float*>(dw3),
-                  plan_wgrad(F, C, 1, pixels), g, s);
-  if (err != cudaSuccess) return err;
-  err = run_wgrad(dy2, C, a1, C, wpart, static_cast<float*>(dw2),
-                  plan_wgrad(C, C, 9, pixels), g, s);
-  if (err != cudaSuccess) return err;
-  bottleneck_bwd_b_kernel<CW><<<grid, THREADS, smem, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wp),
-      static_cast<const float*>(aff), static_cast<bf16*>(dx), dy2, dy1,
-      part, g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  err = run_wgrad(dy1, C, static_cast<const bf16*>(x), F, wpart,
-                  static_cast<float*>(dw1), plan_wgrad(C, F, 1, pixels), g,
-                  s);
-  if (err != cudaSuccess) return err;
-  bottleneck_affine_reduce<<<(4 * C + 2 * F + 255) / 256, 256, 0, s>>>(
-      part, grid, 4 * C + 2 * F, static_cast<float*>(daff));
-  return cudaGetLastError();
+  return sum_rows(partial, w.ranges, static_cast<long long>(m) * n, out, ma,
+                  mb, mc, nullptr, nullptr, s);
 }
 
 }  // namespace
 
 extern "C" {
 
+int conv64_geometry(int n, int h, int w, int kernel, int* out);
+int conv3x3_wgrad_partials(const void* x, const void* g, void* partial,
+                           int n, int h, int w, int c, int ranges,
+                           void* stream);
+
+}  // extern "C"
+
+namespace {
+
+// Pixel ranges of dw2 (conv64.cu's weight-gradient kernel, one block per
+// range and 64 x 64 channel tile): the SMs filled about once.
+int dw2_ranges(int n, int h, int w, int c, int sms) {
+  int geom[6];
+  if (conv64_geometry(n, h, w, 1, geom) != 0) return 1;
+  return std::max(1, std::min(geom[4], sms / ((c / 64) * (c / 64))));
+}
+
+}  // namespace
+
+extern "C" {
+
+// The tiling at this shape: out = {t, whole, per_image, tiles, halo_off,
+// hb, groups, grid}; 0, or -1 for a shape the kernels refuse.
+int bottleneck_geometry(int n, int h, int w, int c, int* out) {
+  Geo g;
+  if (!make_geo(n, h, w, c, cap_for(c), &g)) return -1;
+  const int v[8] = {g.t, g.whole, g.per_image, g.tiles, g.halo_off, g.hb,
+                    g.groups, grid_for(g, c, sm_count())};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
+#ifdef SIMCLR_B6_TRACE
+// Copies the phase clocks out and clears them; returns their number.
+int bottleneck_trace(long long* out) {
+  int n = 0;
+  cudaDeviceSynchronize();
+  cudaMemcpyFromSymbol(&n, b6_trace_n, sizeof(int));
+  cudaMemcpyFromSymbol(out, b6_trace, sizeof(long long) * n);
+  const int zero = 0;
+  cudaMemcpyToSymbol(b6_trace_n, &zero, sizeof(int));
+  return n;
+}
+#endif
+
 // Bytes of scratch bottleneck_bwd needs for x of n x h x w pixels at width
 // c (0 for a shape the kernels do not take).
 long long bottleneck_bwd_workspace(int n, int h, int w, int c) {
   Geo g;
-  const int sms = sm_count();
-  if (!make_geo(n, h, w, c, &g) || sms <= 0) return 0;
-  return plan_work(g, c, sms).total;
+  if (!make_geo(n, h, w, c, cap_for(c), &g)) return 0;
+  return plan_work(g, n, c, sm_count()).total;
 }
 
-// out = the block of x (NHWC bf16, 4c channels); wp = [w1 (c, 4c), w2
-// (c, 9c) as [co][tap][ci], w3 (4c, c)] bf16; aff = [A1 B1 A2 B2 (c each)
-// A3 B3 (4c each)] float32.
+// out = the block of x (NHWC bf16, 4c channels); wp = the forward half of
+// ops/kernels/bottleneck.py:pack_weights (w1, w2, w3 in ring chunks); aff
+// = [A1 B1 A2 B2 (c each) A3 B3 (4c each)] float32.
 int bottleneck_fwd(const void* x, const void* wp, const void* aff, void* out,
                    int n, int h, int w, int c, void* stream) {
   Geo g;
-  if (!make_geo(n, h, w, c, &g)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (c) {
-    case 64: return fwd_impl<1>(x, wp, aff, out, g, s);
-    case 128: return fwd_impl<2>(x, wp, aff, out, g, s);
-    case 256: return fwd_impl<4>(x, wp, aff, out, g, s);
-    default: return fwd_impl<8>(x, wp, aff, out, g, s);
-  }
+  if (!make_geo(n, h, w, c, cap_for(c), &g) || !aligned16(x) ||
+      !aligned16(wp) || !aligned16(out))
+    return cudaErrorInvalidValue;
+  CUtensorMap xmap;
+  if (!simclr::matrix_tensor_map(&xmap, x, g.pixels, 4 * c, 64))
+    return cudaErrorInvalidValue;
+  const unsigned char* w8 = static_cast<const unsigned char*>(wp);
+  Args a = {};
+  a.g = g;
+  a.w0 = w8;
+  a.w1 = w8 + 2LL * 4 * c * c;
+  a.w2 = a.w1 + 2LL * 9 * c * c;
+  a.aff = static_cast<const float*>(aff);
+  a.x = static_cast<const bf16*>(x);
+  a.out = static_cast<bf16*>(out);
+  return tile<FWD>(c, xmap, a, grid_for(g, c, sm_count()),
+                   static_cast<cudaStream_t>(stream));
 }
 
-// The backward for the cotangent gy (NHWC bf16). wp as for the forward,
-// followed by [w1^T (4c, c), the rotated w2 likewise, w3^T (c, 4c)]. Writes
-// dx (bf16), dw1 (c, 4c), dw2 (c, c, 3, 3), dw3 (4c, c) and daff (laid out
-// as aff), all float32 but dx. work: bottleneck_bwd_workspace bytes.
+// The backward for the cotangent gy (NHWC bf16). wp as for the forward;
+// wt = the backward half of pack_weights (w3^T, w2 rotated and swapped,
+// w1^T). Writes dx (bf16), dw1 (c, 4c), dw2 (c, c, 3, 3), dw3 (4c, c) and
+// daff (laid out as aff), all float32 but dx. work:
+// bottleneck_bwd_workspace bytes.
 int bottleneck_bwd(const void* x, const void* gy, const void* wp,
-                   const void* aff, void* work, void* dx, void* dw1,
-                   void* dw2, void* dw3, void* daff, int n, int h, int w,
-                   int c, void* stream) {
+                   const void* wt, const void* aff, void* work, void* dx,
+                   void* dw1, void* dw2, void* dw3, void* daff, int n, int h,
+                   int w, int c, void* stream) {
   Geo g;
-  if (!make_geo(n, h, w, c, &g)) return cudaErrorInvalidValue;
+  if (!make_geo(n, h, w, c, cap_for(c), &g) || !aligned16(x) ||
+      !aligned16(gy) || !aligned16(wp) || !aligned16(wt) ||
+      !aligned16(dx) || !aligned16(work))
+    return cudaErrorInvalidValue;
+  const int sms = sm_count(), f = 4 * c;
+  const Work k = plan_work(g, n, c, sms);
+  unsigned char* base = static_cast<unsigned char*>(work);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (c) {
-    case 64:
-      return bwd_impl<1>(x, gy, wp, aff, work, dx, dw1, dw2, dw3, daff, g, s);
-    case 128:
-      return bwd_impl<2>(x, gy, wp, aff, work, dx, dw1, dw2, dw3, daff, g, s);
-    case 256:
-      return bwd_impl<4>(x, gy, wp, aff, work, dx, dw1, dw2, dw3, daff, g, s);
-    default:
-      return bwd_impl<8>(x, gy, wp, aff, work, dx, dw1, dw2, dw3, daff, g, s);
-  }
+  Args a = {};
+  a.g = g;
+  a.aff = static_cast<const float*>(aff);
+  a.x = static_cast<const bf16*>(x);
+  a.gy = static_cast<const bf16*>(gy);
+  a.a1 = reinterpret_cast<bf16*>(base + k.a1);
+  a.a2 = reinterpret_cast<bf16*>(base + k.a2);
+  a.dy2 = reinterpret_cast<bf16*>(base + k.dy2);
+  a.dy1 = reinterpret_cast<bf16*>(base + k.dy1);
+  a.dy3 = reinterpret_cast<bf16*>(base + k.dy3);
+  a.y1 = reinterpret_cast<float*>(base + k.y1);
+  a.y2 = reinterpret_cast<float*>(base + k.y2);
+  a.mask = reinterpret_cast<uint2*>(base + k.mask);
+  a.part = reinterpret_cast<float*>(base + k.part);
+  float* wpart = reinterpret_cast<float*>(base + k.wpart);
+  const unsigned char* w8 = static_cast<const unsigned char*>(wp);
+  const unsigned char* t8 = static_cast<const unsigned char*>(wt);
+  const int grid = grid_for(g, c, sms);
+  CUtensorMap xmap, dy3map, dy2map;
+  if (!simclr::matrix_tensor_map(&xmap, x, g.pixels, f, 64) ||
+      !simclr::matrix_tensor_map(&dy3map, a.dy3, g.pixels, f, 64) ||
+      !simclr::matrix_tensor_map(&dy2map, a.dy2, g.pixels, c, 64))
+    return cudaErrorInvalidValue;
+
+  a.w0 = w8;
+  a.w1 = w8 + 2LL * 4 * c * c;
+  a.w2 = a.w1 + 2LL * 9 * c * c;
+  cudaError_t err = tile<BWD1>(c, xmap, a, grid, s);
+  if (err != cudaSuccess) return err;
+  a.w0 = t8;                                   // w3^T
+  err = tile<BWD2>(c, dy3map, a, grid, s);
+  if (err != cudaSuccess) return err;
+  a.w0 = t8 + 2LL * 4 * c * c;                 // w2 rotated and swapped
+  a.w1 = a.w0 + 2LL * 9 * c * c;               // w1^T
+  a.out = static_cast<bf16*>(dx);
+  err = tile<BWD3>(c, dy2map, a, grid, s);
+  if (err != cudaSuccess) return err;
+  // dw3[f][c] = dy3^T a2; dw2 from (a1, dy2); dw1[c][f] = (x^T dy1)^T.
+  err = wgrad(a.dy3, f, a.a2, c, g.pixels, wpart, static_cast<float*>(dw3),
+              1, 1, 1, sms, s);
+  if (err != cudaSuccess) return err;
+  const int r2 = dw2_ranges(n, h, w, c, sms);
+  err = static_cast<cudaError_t>(conv3x3_wgrad_partials(
+      a.a1, a.dy2, wpart, n, h, w, c, r2, stream));
+  if (err != cudaSuccess) return err;
+  err = sum_rows(wpart, r2, 9LL * c * c, static_cast<float*>(dw2), 9, c, c,
+                 nullptr, nullptr, s);
+  if (err != cudaSuccess) return err;
+  err = wgrad(static_cast<const bf16*>(x), f, a.dy1, c, g.pixels, wpart,
+              static_cast<float*>(dw1), f, c, 1, sms, s);
+  if (err != cudaSuccess) return err;
+  return sum_rows(a.part, k.part_rows, 4LL * c + 2LL * f,
+                  static_cast<float*>(daff), 1, 1, 1,
+                  reinterpret_cast<float*>(base + k.s1),
+                  reinterpret_cast<float*>(base + k.s2), s);
 }
 
 }  // extern "C"

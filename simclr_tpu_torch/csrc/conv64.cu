@@ -64,6 +64,9 @@
 // Shared memory: filter 73,728 + ring 3 x 40,960 + staging 32,768 +
 // barriers = 229,440 bytes of the 232,448 a block may have.
 //
+// (B4w reads its warp index through a shuffle, warp_index: with threadIdx
+// / 32, ptxas serialised its products, C7520; B4f still does.)
+//
 // B4w, conv64_wgrad_kernel: dW[tap][co][ci] = sum over pixels p of
 // g[p][co] x[p + tap][ci], M = 64 co (A = g, MN-major), N = 3 dx x 64 ci
 // (B = the three copies of an x row, MN-major, the descriptor's leading
@@ -128,6 +131,7 @@ using simclr::wgmma_64x192x16;
 using simclr::wgmma_commit;
 using simclr::wgmma_fence;
 using simclr::wgmma_wait;
+using simclr::warp_index;
 
 constexpr int C = 64;               // input and output channels
 constexpr int TAPS = 9;
@@ -326,7 +330,11 @@ conv64_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
 // ---------------------------------------------------------------------------
 
 // One range's partial dW [tap][co][ci] float32 over items [b0, b1) of
-// `items`, the range blockIdx.x of gridDim.x equal shares. An item is
+// `items`, the range blockIdx.x / tiles of `ranges` equal shares, for the
+// 64 x 64 channel tile blockIdx.x % tiles of x and g with c channels
+// (tiles = (c / 64)^2: 1 for layer1's conv; the fused bottleneck's dw2
+// takes c up to 512; the CTAs of one range are adjacent, so that the
+// range crosses L2 about once). An item is
 // q.rows = RS rows of wt = 16 KS columns of one image (64 pixels, or 48
 // at wt = 48): its three x copies (dx = -1, 0, 1) and its g rows, each a
 // box of RS x wt pixels; the ring holds `ring` (at least 5) items.
@@ -334,7 +342,8 @@ template <int KS>
 __global__ void __launch_bounds__(W_THREADS, 1)
 conv64_wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap gmap,
-                    float* __restrict__ partial, Geom q, int h, int ring) {
+                    float* __restrict__ partial, Geom q, int h, int ring,
+                    int c, int ranges) {
   constexpr int RS = KS == 3 ? 1 : 4 / KS;   // rows of an item
   constexpr int ROW = 16 * KS * PX;          // bytes of one row of a copy
   constexpr int COPY = RS * ROW;
@@ -342,10 +351,13 @@ conv64_wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + W_BAR);
   uint64_t* empty = full + W_MAX_ITEMS;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = warp_index();
   const long long items = q.tiles;
-  const int b0 = static_cast<int>(items * blockIdx.x / gridDim.x);
-  const int b1 = static_cast<int>(items * (blockIdx.x + 1) / gridDim.x);
+  const int cb = c / C, tiles = cb * cb;
+  const int range = blockIdx.x / tiles, tile = blockIdx.x - range * tiles;
+  const int co0 = (tile / cb) * C, ci0 = (tile % cb) * C;
+  const int b0 = static_cast<int>(items * range / ranges);
+  const int b1 = static_cast<int>(items * (range + 1) / ranges);
   if (tid == 0) {
     check_atoms(smem);
     for (int s = 0; s < ring; ++s) {
@@ -379,9 +391,9 @@ conv64_wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
         unsigned char* dst = smem + slot * ITEM;
         mbar_expect_tx(&full[slot], ITEM);
         for (int j = 0; j < 3; ++j)
-          tma_load_4d(dst + j * COPY, &xmap, &full[slot], 0,
+          tma_load_4d(dst + j * COPY, &xmap, &full[slot], ci0,
                       ct * q.wt + j - 1, rt * RS, img);
-        tma_load_4d(dst + 3 * COPY, &gmap, &full[slot], 0, ct * q.wt,
+        tma_load_4d(dst + 3 * COPY, &gmap, &full[slot], co0, ct * q.wt,
                     rt * RS, img);
         if (++rt == q.nrt) {
           rt = 0;
@@ -460,15 +472,16 @@ conv64_wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
   wgmma_wait<0>();
   fence_operands(acc);
 
-  float* out = partial + static_cast<long long>(blockIdx.x) * TAPS * C * C;
+  float* out = partial + static_cast<long long>(range) * TAPS * c * c;
 #pragma unroll
   for (int j = 0; j < 24; ++j)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int co = 16 * wr + (lane >> 2) + 8 * half;
       const int tap = 3 * ky + j / 8, ci = 8 * (j % 8) + 2 * (lane & 3);
-      *reinterpret_cast<float2*>(out + (tap * C + co) * C + ci) =
-          make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      *reinterpret_cast<float2*>(
+          out + (static_cast<long long>(tap) * c + co0 + co) * c + ci0 +
+          ci) = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
     }
 }
 
@@ -485,9 +498,9 @@ conv64_wgrad_reduce(const float* __restrict__ partial, int ranges,
   dw[(co * C + ci) * TAPS + tap] = acc;
 }
 
-bool shape_ok(int n, int h, int w) {
+bool shape_ok(int n, int h, int w, int c = C) {
   return n > 0 && h > 0 && w > 0 &&
-         static_cast<long long>(n) * h * w * C < (1LL << 31);
+         static_cast<long long>(n) * h * w * c < (1LL << 31);
 }
 
 simclr::SmemOptIn fwd_smem;
@@ -496,12 +509,43 @@ simclr::SmemOptIn wgrad_smem[4];
 template <int KS>
 cudaError_t wgrad_launch(const CUtensorMap& xmap, const CUtensorMap& gmap,
                          float* partial, const Geom& q, int h, int ring,
-                         int ranges, cudaStream_t s) {
+                         int c, int ranges, cudaStream_t s) {
   cudaError_t err = wgrad_smem[KS - 1](conv64_wgrad_kernel<KS>, W_SMEM);
   if (err != cudaSuccess) return err;
-  conv64_wgrad_kernel<KS><<<ranges, W_THREADS, W_SMEM, s>>>(
-      xmap, gmap, partial, q, h, ring);
+  const int tiles = (c / C) * (c / C);
+  conv64_wgrad_kernel<KS><<<ranges * tiles, W_THREADS, W_SMEM, s>>>(
+      xmap, gmap, partial, q, h, ring, c, ranges);
   return cudaGetLastError();
+}
+
+// B4w's partials over `ranges` pixel ranges of x and g (NHWC bf16, c
+// channels, c a multiple of 64): partial [range][tap][co][ci] float32.
+cudaError_t wgrad_partials(const void* x, const void* g, float* partial,
+                           int n, int h, int w, int c, int ranges,
+                           cudaStream_t s) {
+  if (!shape_ok(n, h, w, c) || c % C != 0 || ranges < 1 || !aligned16(x) ||
+      !aligned16(g))
+    return cudaErrorInvalidValue;
+  const Geom q = geometry(n, h, w, 1);
+  if (ranges > q.tiles) return cudaErrorInvalidValue;
+  CUtensorMap xmap, gmap;
+  const uint32_t box[4] = {C, static_cast<uint32_t>(q.wt),
+                           static_cast<uint32_t>(q.rows), 1};
+  if (!simclr::nhwc_tensor_map(&xmap, x, n, h, w, c, box, true) ||
+      !simclr::nhwc_tensor_map(&gmap, g, n, h, w, c, box, true))
+    return cudaErrorInvalidValue;
+  const int ring =
+      std::min(W_MAX_ITEMS, W_RING_BYTES / (4 * q.rows * q.wt * PX));
+  switch (q.wt / 16) {
+    case 1: return wgrad_launch<1>(xmap, gmap, partial, q, h, ring, c,
+                                   ranges, s);
+    case 2: return wgrad_launch<2>(xmap, gmap, partial, q, h, ring, c,
+                                   ranges, s);
+    case 3: return wgrad_launch<3>(xmap, gmap, partial, q, h, ring, c,
+                                   ranges, s);
+    default: return wgrad_launch<4>(xmap, gmap, partial, q, h, ring, c,
+                                    ranges, s);
+  }
 }
 
 }  // namespace
@@ -551,34 +595,26 @@ int conv64_fwd(const void* x, const void* wpk, void* y, int n, int h, int w,
 // from conv64_geometry(n, h, w, 1, ...).
 int conv64_wgrad(const void* x, const void* g, void* partial, void* dw, int n,
                  int h, int w, void* stream) {
-  if (!shape_ok(n, h, w) || !aligned16(x) || !aligned16(g))
-    return cudaErrorInvalidValue;
-  const Geom q = geometry(n, h, w, 1);
-  CUtensorMap xmap, gmap;
-  const uint32_t box[4] = {C, static_cast<uint32_t>(q.wt),
-                           static_cast<uint32_t>(q.rows), 1};
-  if (!simclr::nhwc_tensor_map(&xmap, x, n, h, w, C, box, true) ||
-      !simclr::nhwc_tensor_map(&gmap, g, n, h, w, C, box, true))
-    return cudaErrorInvalidValue;
-  const int ring =
-      std::min(W_MAX_ITEMS, W_RING_BYTES / (4 * q.rows * q.wt * PX));
-  const int ranges = std::min(q.tiles, sm_count());
+  if (!shape_ok(n, h, w)) return cudaErrorInvalidValue;
+  const int ranges = std::min(geometry(n, h, w, 1).tiles, sm_count());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(partial);
-  cudaError_t err;
-  switch (q.wt / 16) {
-    case 1: err = wgrad_launch<1>(xmap, gmap, out, q, h, ring, ranges, s);
-      break;
-    case 2: err = wgrad_launch<2>(xmap, gmap, out, q, h, ring, ranges, s);
-      break;
-    case 3: err = wgrad_launch<3>(xmap, gmap, out, q, h, ring, ranges, s);
-      break;
-    default: err = wgrad_launch<4>(xmap, gmap, out, q, h, ring, ranges, s);
-  }
+  cudaError_t err = wgrad_partials(x, g, static_cast<float*>(partial), n, h,
+                                   w, C, ranges, s);
   if (err != cudaSuccess) return err;
   conv64_wgrad_reduce<<<cdiv(TAPS * C * C, 256), 256, 0, s>>>(
       static_cast<const float*>(partial), ranges, static_cast<float*>(dw));
   return cudaGetLastError();
+}
+
+// The fused bottleneck's dw2 (csrc/bottleneck.cu): B4w's float32 partials
+// [range][tap][co][ci] of the 3x3 convolution of x (NHWC bf16, c
+// channels) with cotangent g over `ranges` pixel ranges (at most
+// conv64_geometry's items).
+int conv3x3_wgrad_partials(const void* x, const void* g, void* partial,
+                           int n, int h, int w, int c, int ranges,
+                           void* stream) {
+  return wgrad_partials(x, g, static_cast<float*>(partial), n, h, w, c,
+                        ranges, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,12 +1,15 @@
 // Hopper (sm_90a) building blocks for warp-specialised kernels: mbarriers,
-// TMA tensor and bulk copies into shared memory, wgmma (warpgroup matrix
-// multiply from shared-memory descriptors, no-swizzle and 128-byte
-// swizzle) with its fences, transposed stmatrix, an mma.sync with a zero
-// accumulator, and the host-side tensor-map encoder, found through the
-// CUDA runtime's entry-point query (so the library needs no -lcuda).
+// TMA tensor and bulk copies into shared memory (bulk copies also
+// multicast to a cluster), thread block clusters (rank, barrier, remote
+// mbarrier arrive, launch), wgmma (warpgroup matrix multiply with A and B
+// from shared-memory descriptors, no-swizzle and 128-byte swizzle, or A
+// from registers) with its fences, transposed stmatrix, an mma.sync with a
+// zero accumulator, and the host-side tensor-map encoder, found through
+// the CUDA runtime's entry-point query (so the library needs no -lcuda).
 #pragma once
 
 #include <cstdint>
+#include <utility>
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -77,6 +80,14 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// This thread's warp index, read from lane 0 so that ptxas knows it to be
+// the same across the warp: wgmma in a branch on it is then not in a
+// divergent path, which ptxas would serialise (C7520: it injects a
+// warpgroup.arrive there and waits for every product before the next).
+__device__ __forceinline__ int warp_index() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
+}
+
 // Named barrier over `count` threads (a multiple of 32), id 1-15.
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -120,6 +131,18 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
                : "memory");
 }
 
+// Box of a 2-D tensor map at coordinates (column, row).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // Box of a 4-D tensor map from shared memory, the inverse of tma_load_4d:
 // elements outside the tensor are not written. The copy joins this
 // thread's bulk group (bulk_commit, bulk_wait_read).
@@ -158,6 +181,55 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The same into the shared memory of every block of the cluster in
+// `mask` (bit r: rank r), each block's copy completing on its own
+// mbarrier at bar's offset.
+__device__ __forceinline__ void bulk_load_multicast(void* dst,
+                                                    const void* src,
+                                                    uint32_t bytes,
+                                                    uint64_t* bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives and waits: shared
+// memory (barriers included) written before it is visible cluster-wide
+// after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// Arrives on the mbarrier at bar's offset in the block of rank `rank` of
+// the cluster (this block's own where rank is its rank).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(rank)
       : "memory");
 }
 
@@ -313,6 +385,132 @@ __device__ __forceinline__ void wgmma_64x192x16(float (&d)[96], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate), "n"(SA), "n"(TA), "n"(TB));
 }
 
+// The same for a 64 x 256 x 16 product: columns 8 j + 2 (t % 4) and + 1,
+// j = 0..31.
+template <int TA, int TB, int SA = 1>
+__device__ __forceinline__ void wgmma_64x256x16(float (&d)[128], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, %131, 1, %132, %133;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(SA), "n"(TA), "n"(TB));
+}
+
+// m64nNk16 from shared memory by accumulator size (N = 2 x its length),
+// for code templated on N.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_64x64x16<TA, TB>(d, da, db, accumulate);
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_64x128x16<TA, TB>(d, da, db, accumulate);
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  wgmma_64x256x16<TA, TB>(d, da, db, accumulate);
+}
+
+// d (+)= A * B for a 64 x N x 16 product (N = 2 x the accumulators) with A
+// from registers: a[0..3] hold this thread's bf16 pairs of the warp's 16
+// rows of A in mma_bf16's fragment layout (rows t / 4 and + 8, columns
+// 2 (t % 4) and + 8), as ldmatrix.x4 loads them; B K-major from shared
+// memory. The registers in a must not change until the product is done
+// (wgmma_wait), and a wgmma_fence must separate their loading from it.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+
 // Four 8 x 8 b16 matrices from registers to shared memory, transposed:
 // r[q] holds matrix q in mma_bf16's accumulator layout (thread t: row
 // t / 4, columns 2 (t % 4) and + 1); lane l gives the address of row
@@ -398,6 +596,46 @@ inline bool nhwc_tensor_map(CUtensorMap* map, const void* base, int n, int h,
                             : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map of a row-major bf16 matrix (rows, cols) read in boxes of
+// box_rows rows x 64 columns (128 bytes) with the 128-byte swizzle: a box
+// lands as the K-major (or, for rows along K, MN-major) operand tile that
+// desc_sw128 reads. Rows and columns outside the matrix arrive as zeros.
+inline bool matrix_tensor_map(CUtensorMap* map, const void* base,
+                              long long rows, int cols, int box_rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t boxdim[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, boxdim, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launches kernel on a grid of clusters of `cluster` blocks along x.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid,
+                            dim3 block, int smem, cudaStream_t stream,
+                            int cluster, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }
 
 }  // namespace simclr

@@ -46,9 +46,10 @@ SIGNATURES = {
     "winograd_dw_ranges": (_I,) * 5,
     "winograd_fwd": (_P, _P, _P) + (_I,) * 5 + (_P,),
     "winograd_dw": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "bottleneck_geometry": (_I,) * 4 + (_P,),
     "bottleneck_bwd_workspace": (_I,) * 4,
     "bottleneck_fwd": (_P,) * 4 + (_I,) * 4 + (_P,),
-    "bottleneck_bwd": (_P,) * 10 + (_I,) * 4 + (_P,),
+    "bottleneck_bwd": (_P,) * 11 + (_I,) * 4 + (_P,),
 }
 # Entry points that return something other than a CUDA error code.
 RESTYPES = {"bottleneck_bwd_workspace": ctypes.c_longlong}
@@ -65,20 +66,23 @@ def _sources() -> list:
     return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(flags: tuple = NVCC_FLAGS) -> Path:
+    """Where the library for the current sources and these nvcc flags
+    lives (built or not)."""
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
 
 
-def build() -> Path:
+def build(extra_flags: tuple = ()) -> Path:
     """Compile the sources if their library is not built yet; return its
     path. The compiler's output (register and shared-memory use per
-    kernel) is kept beside it as ``build.log``."""
-    lib = library_path()
+    kernel) is kept beside it as ``build.log``. ``extra_flags`` (e.g. a
+    -D of an instrumented build) give a library of their own."""
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    lib = library_path(flags)
     if lib.is_file():
         return lib
     nvcc = nvcc_path()
@@ -87,7 +91,7 @@ def build() -> Path:
         units = [src for src in _sources() if src.suffix == ".cu"]
         objs = [Path(tmp) / (src.stem + ".o") for src in units]
         procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            [nvcc, *flags, "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(units, objs)]
         logs = [p.communicate()[0] for p in procs]
@@ -107,15 +111,20 @@ def build() -> Path:
     return lib
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    lib = ctypes.CDLL(str(build()))
+def load(path: Path) -> ctypes.CDLL:
+    """A built library with its entry points' argument types set."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    return load(build())
 
 
 def check(status: int, name: str) -> None:

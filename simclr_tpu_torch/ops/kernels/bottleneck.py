@@ -23,11 +23,19 @@ brings each operand to channels_last first (a copy only where needed:
 autograd promises no layout, and the pooled cotangent has stride 0).
 
 GPU gate (``supports``): a 4-D bf16 tensor with 4C channels, C in {64,
-128, 256, 512} (the kernels give each of 8 warps 64 channels of a tile of
-8192 / C pixels), W <= 8192 / C (a tile holds at least one image row),
+128, 256, 512} (the kernels' instantiations), W <= 8192 / C (a tile and
+its halo of one row and a pixel on each side fit a warpgroup's buffer),
 any N and H >= 1, fewer than 2**31 elements. JAX's ``pick_tile`` (whole
 images in a 9 MB VMEM budget, C % 8 and 4C % 128) is a TPU rule: it
 refuses layer4 at batch 1024, which the CUDA kernels take.
+
+The kernels (``csrc/bottleneck.cu``, whose header has the design) tile
+the pixels in tiles of at most 64 (``geometry`` mirrors their plan), one
+a warpgroup, multiply on wgmma and stream the weights, packed once by
+``pack_weights`` into the chunks their ring copies, to two tiles at once
+(two warpgroups of a block, or at C >= 256 the two blocks of a cluster).
+B6b runs the tile kernel three times and three weight-gradient products
+over a workspace (``workspace_bytes``).
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel, or raises ``ValueError`` for operands the kernel
@@ -37,16 +45,23 @@ to the wrapper's ``launches``.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from simclr_tpu_torch.ops.kernels import _build
+from simclr_tpu_torch.ops.kernels import _build, conv64
 from simclr_tpu_torch.ops.kernels.conv64 import nhwc_operand, rot180_swap
 
-WIDTHS = (64, 128, 256, 512)   # C, the bottleneck width (csrc TILE_ELEMS)
-TILE_ELEMS = 8192              # pixels x C of one tile
+WIDTHS = (64, 128, 256, 512)   # C, the bottleneck width (csrc Cfg)
+TILE_ELEMS = 8192              # the gate: W <= TILE_ELEMS / C
+TILE = 64                      # output pixels of a tile (one wgmma M)
+# Rows of a warpgroup's halo buffer, the largest halo a tile may have and
+# the halo blocks of a conv1 round (csrc Cfg<C>::ROWS, CAP and G).
+HALO_ROWS = {64: 384, 128: 192, 256: 128, 512: 64}
+HALO_CAP = {64: 320, 128: 192, 256: 128, 512: 64}
+ROUND_BLOCKS = {64: 2, 128: 1, 256: 1, 512: 1}
 
 
 def supports(x: torch.Tensor, c: int) -> bool:
@@ -130,23 +145,195 @@ def fused_bottleneck_bwd_plain(x, w1, w2, w3, affines, g):
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
-def pack_weights(w1, w2, w3, backward: bool) -> torch.Tensor:
-    """The kernels' bf16 weight block: [w1 (C, 4C), w2 (C, 9C), w3 (4C,
-    C)] with w2 as [co][tap = 3 ky + kx][ci], and for the backward also
-    [w1^T (4C, C), rot180_swap(w2) likewise, w3^T (C, 4C)]; each matrix
-    row-major with its reduction axis contiguous."""
+def _xor_index(device) -> torch.Tensor:
+    """[row % 8][chunk] -> the chunk stored there: c ^ (row % 8)."""
+    r = torch.arange(8, device=device)
+    return r[:, None] ^ r[None, :]
+
+
+def _ring_chunks(m: torch.Tensor, np_: int) -> torch.Tensor:
+    """An [N][K] bf16 matrix as the kernels stream it: [pass of np_
+    rows][64-deep step][np_ rows][64] with the 16-byte chunk c of row r
+    stored at chunk c ^ (r % 8) (the 128-byte swizzle a K-major wgmma
+    descriptor reads), flattened."""
+    n, k = m.shape
+    t = m.reshape(n // np_, np_ // 8, 8, k // 64, 8, 8)   # p, ra, rb, s, c, e
+    t = t.permute(0, 3, 1, 2, 4, 5)                       # p, s, ra, rb, c, e
+    idx = _xor_index(m.device)
+    return t[:, :, :, torch.arange(8, device=m.device)[:, None], idx, :] \
+        .reshape(-1)
+
+
+def pass_widths(c: int) -> tuple:
+    """Outputs a pass of each packed matrix of a half, in pack_weights'
+    order (csrc Cfg: NP1, NP2 and NPB for the C-wide w1, w2, w3^T and the
+    rotated w2; NP3 for the F-wide w3 and w1^T)."""
+    return min(c, 128), min(c, 128), 128
+
+
+def _pack_order(w1, w2, w3, backward: bool) -> torch.Tensor:
+    """``pack_weights``' permutation applied to w1, w2, w3 as they are
+    (any dtype): the chunks of each matrix at its pass width."""
     c = w1.shape[0]
-    bf = torch.bfloat16
-    m1 = w1.reshape(c, 4 * c).to(bf)
-    m3 = w3.reshape(4 * c, c).to(bf)
+    m1, m3 = w1.reshape(c, 4 * c), w3.reshape(4 * c, c)
 
     def taps(w):
-        return w.to(bf).permute(0, 2, 3, 1).reshape(c, 9 * c)
+        return w.permute(0, 2, 3, 1).reshape(c, 9 * c)
 
-    parts = [m1, taps(w2), m3]
-    if backward:
-        parts += [m1.t(), taps(rot180_swap(w2)), m3.t()]
-    return torch.cat([p.reshape(-1) for p in parts])
+    parts = ([m3.t(), taps(rot180_swap(w2)), m1.t()] if backward
+             else [m1, taps(w2), m3])
+    return torch.cat([_ring_chunks(p.contiguous(), np_)
+                      for p, np_ in zip(parts, pass_widths(c))])
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(c: int, backward: bool, device: torch.device) -> torch.Tensor:
+    """Where each packed element comes from in cat(w1, w2, w3) flattened:
+    the packing run once on the positions themselves."""
+    n1, n2 = 4 * c * c, 9 * c * c
+    pos = torch.arange(2 * n1 + n2, dtype=torch.int32)
+    order = _pack_order(pos[:n1].view(c, 4 * c, 1, 1),
+                        pos[n1:n1 + n2].view(c, c, 3, 3),
+                        pos[n1 + n2:].view(4 * c, c, 1, 1), backward)
+    return order.to(device)
+
+
+def pack_weights(w1, w2, w3, backward: bool) -> torch.Tensor:
+    """The kernels' bf16 weight chunks (``_ring_chunks`` of each matrix
+    at its ``pass_widths``, concatenated). Forward (``backward=False``):
+    w1 as (C, 4C), w2 as (C, 9C) = [co][tap = 3 ky + kx][ci], w3 as
+    (4C, C); each matrix's rows are its outputs, its columns the
+    reduction. Backward: the transposed half alone, w3^T (C, 4C),
+    ``rot180_swap(w2)`` like w2, w1^T (4C, C); B6b takes both halves, and
+    the autograd function packs the forward half once a step for B6f and
+    B6b. One gather with a cached index (three kernels a half)."""
+    flat = torch.cat([w.reshape(-1) for w in (w1, w2, w3)]).to(torch.bfloat16)
+    return flat.index_select(
+        0, _pack_index(w1.shape[0], backward, flat.device))
+
+
+def unpack_matrix(chunks: torch.Tensor, n: int, k: int,
+                  np_: int) -> torch.Tensor:
+    """The inverse of ``_ring_chunks`` for an [n][k] matrix packed in
+    passes of np_ rows."""
+    t = chunks.reshape(n // np_, k // 64, np_ // 8, 8, 8, 8)
+    idx = _xor_index(chunks.device)
+    t = t[:, :, :, torch.arange(8, device=chunks.device)[:, None], idx, :]
+    return t.permute(0, 2, 3, 1, 4, 5).reshape(n, k)
+
+
+def geometry(n: int, h: int, w: int, c: int) -> tuple:
+    """The kernels' tiles (csrc/bottleneck.cu ``make_geo``; the first seven
+    entries of ``bottleneck_geometry``): (t, whole, per_image, tiles,
+    halo_off, hb, groups). Images of at most 64 pixels go t / HW whole to
+    a tile, with no halo; larger ones are cut into tiles of t <= 64
+    pixels each, whose a1 is computed on [p0 - halo_off, p0 + t +
+    halo_off) within the image (halo_off = W, or W + 1 where t is not a
+    whole number of rows) in hb blocks of 64 rows; t shrinks where that
+    would not fit the halo buffer. Tiles go in pairs (groups) that share
+    the weight stream. None where the kernels refuse the shape."""
+    if (n < 1 or h < 1 or w < 1 or c not in WIDTHS
+            or w > TILE_ELEMS // c or n * h * w * 4 * c >= 2 ** 31):
+        return None
+    hw = h * w
+    if hw <= TILE:
+        t, whole, per_image = (TILE // hw) * hw, 1, 0
+        tiles, off, hb = -(-n // (TILE // hw)), 0, 1
+    else:
+        t, off = TILE, w + (TILE % w != 0)
+        if t + 2 * off > HALO_CAP[c]:
+            t = HALO_CAP[c] - 2 * (w + 1)
+            off = w + (t % w != 0)
+        whole, per_image = 0, -(-hw // t)
+        tiles, hb = n * per_image, -(-(t + 2 * off) // 64)
+    return t, whole, per_image, tiles, off, hb, -(-tiles // 2)
+
+
+def conv1_rounds(c: int, hb: int) -> list:
+    """conv1's rounds at width c for hb halo blocks (csrc ``round_box``):
+    for each round (a pass of min(c, 128) outputs over a group of at most
+    ROUND_BLOCKS[c] blocks), (its own a1 boxes, the boxes that carry x
+    through its A slots, slot by slot). A box is (64-channel block, block
+    of 64 rows) of a warpgroup's halo buffer."""
+    cb, g = c // 64, ROUND_BLOCKS[c]
+    cbp, rb_n = min(c, 128) // 64, HALO_ROWS[c] // 64
+    out = []
+    for gi in range(-(-hb // g)):
+        nb = min(g, hb - gi * g)
+        for p in range(c // min(c, 128)):
+            wide = cb - p * cbp
+            free = ([(p * cbp + k % wide, gi * g + k // wide)
+                     for k in range(nb * wide)]
+                    + [(k % cb, gi * g + nb + k // cb)
+                       for k in range((rb_n - gi * g - nb) * cb)])
+            da = min(8, len(free) // nb)
+            own = [(p * cbp + j, gi * g + b) for b in range(nb)
+                   for j in range(cbp)]
+            out.append((own, [free[s * nb:(s + 1) * nb] for s in range(da)]))
+    return out
+
+
+def tile_pixels(n: int, h: int, w: int, c: int) -> list:
+    """(first pixel, pixels, halo start) of each tile, in the kernels'
+    order (``tile_at``)."""
+    t, whole, per_image, tiles, off, _, _ = geometry(n, h, w, c)
+    hw, out = h * w, []
+    for i in range(tiles):
+        if whole:
+            p0 = i * t
+            out.append((p0, min(t, n * hw - p0), p0 - off))
+        else:
+            img, j = divmod(i, per_image)
+            p0 = img * hw + j * t
+            out.append((p0, min(t, hw - j * t), p0 - off))
+    return out
+
+
+def grid(n: int, h: int, w: int, c: int, sms: int) -> int:
+    """Blocks of a tile kernel, up to one an SM: at C <= 128 a block of
+    two warpgroups takes a pair of tiles; at C >= 256 a cluster of two
+    blocks does, one tile a block. Either way the pair shares every
+    weight chunk."""
+    cl = 1 if c <= 128 else 2
+    return cl * max(1, min(geometry(n, h, w, c)[6], sms // cl))
+
+
+def wgrad_ranges(m: int, n: int, pixels: int, sms: int) -> int:
+    """Pixel ranges of dw3 and dw1 (``plan_wgrad``): 128 x min(n, 256)
+    output tiles, ranges that fill the SMs about once."""
+    tiles = (m // 128) * (n // min(n, 256))
+    return max(1, min(-(-pixels // 64), -(-sms // tiles)))
+
+
+def dw2_ranges(n: int, h: int, w: int, c: int, sms: int) -> int:
+    """Pixel ranges of dw2 (conv64.cu's weight-gradient kernel over
+    (c / 64)^2 channel tiles)."""
+    items = conv64.geometry(n, h, w, 1)[4]
+    return max(1, min(items, sms // ((c // 64) ** 2)))
+
+
+def workspace_bytes(n: int, h: int, w: int, c: int, sms: int) -> int:
+    """Scratch of one B6b call (csrc ``plan_work``): a1, a2, dy2, dy1 (bf16,
+    C wide), y1, y2 (float32), dy3 (bf16, 4C wide), u3's mask (a bit an
+    element of each tile pair), the affine partial rows (one a warp and
+    tile) and their sums in levels of 64 rows, and the largest
+    weight-gradient partials; each rounded up to 256 bytes. 0 where the
+    kernels refuse the shape."""
+    geo = geometry(n, h, w, c)
+    if geo is None:
+        return 0
+    px, f, groups = n * h * w, 4 * c, geo[6]
+
+    def up(b):
+        return -(-b // 256) * 256
+
+    rows, cols = geo[3] * 4, 4 * c + 2 * f
+    wpart = max(wgrad_ranges(f, c, px, sms) * f * c * 4,
+                dw2_ranges(n, h, w, c, sms) * 9 * c * c * 4)
+    return (4 * up(px * c * 2) + 2 * up(px * c * 4) + up(px * f * 2)
+            + up(2 * groups * f * 8) + up(rows * cols * 4)
+            + up(-(-rows // 64) * cols * 4)
+            + up(-(-(-(-rows // 64)) // 64) * cols * 4) + up(wpart))
 
 
 def _pack_affines(affines: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -171,13 +358,15 @@ def _check(name: str, x: torch.Tensor, w1, w2, w3, affines, *others):
             f"(see bottleneck.supports)")
 
 
-def bottleneck_fwd(x, w1, w2, w3, affines) -> torch.Tensor:
-    """B6f: the block's output (N, 4C, H, W) in bf16."""
+def bottleneck_fwd(x, w1, w2, w3, affines, packed=None) -> torch.Tensor:
+    """B6f: the block's output (N, 4C, H, W) in bf16. ``packed``: the
+    forward half of ``pack_weights``, if the caller has it."""
     if x.device.type == "cpu":
         return fused_bottleneck_plain(x, w1, w2, w3, affines)
     _check("bottleneck_fwd", x, w1, w2, w3, affines)
     xs = nhwc_operand(x)
-    wp, aff = pack_weights(w1, w2, w3, False), _pack_affines(affines)
+    wp = pack_weights(w1, w2, w3, False) if packed is None else packed
+    aff = _pack_affines(affines)
     out = torch.empty_like(xs, memory_format=torch.channels_last)
     n, f, h, w = x.shape
     with torch.cuda.device(x.device):
@@ -189,15 +378,20 @@ def bottleneck_fwd(x, w1, w2, w3, affines) -> torch.Tensor:
     return out
 
 
-def bottleneck_bwd(x, w1, w2, w3, affines, g) -> Tuple[torch.Tensor, ...]:
+def bottleneck_bwd(x, w1, w2, w3, affines, g,
+                   packed=None) -> Tuple[torch.Tensor, ...]:
     """B6b: (dx, dw1, dw2, dw3, dA1, dB1, dA2, dB2, dA3, dB3) for the
     cotangent g of the block's output; dx bf16, the rest float32, the
-    weight gradients in the weights' layouts."""
+    weight gradients in the weights' layouts. ``packed``: the forward
+    half of ``pack_weights``, if the caller has it (the backward half is
+    packed here)."""
     if x.device.type == "cpu":
         return fused_bottleneck_bwd_plain(x, w1, w2, w3, affines, g)
     _check("bottleneck_bwd", x, w1, w2, w3, affines, g)
     xs, gs = nhwc_operand(x), nhwc_operand(g)
-    wp, aff = pack_weights(w1, w2, w3, True), _pack_affines(affines)
+    wp = pack_weights(w1, w2, w3, False) if packed is None else packed
+    wt = pack_weights(w1, w2, w3, True)
+    aff = _pack_affines(affines)
     n, f, h, w = x.shape
     c = f // 4
     lib = _build.library()
@@ -209,7 +403,8 @@ def bottleneck_bwd(x, w1, w2, w3, affines, g) -> Tuple[torch.Tensor, ...]:
         work = torch.empty(lib.bottleneck_bwd_workspace(n, h, w, c),
                            dtype=torch.uint8, device=x.device)
         status = lib.bottleneck_bwd(
-            xs.data_ptr(), gs.data_ptr(), wp.data_ptr(), aff.data_ptr(),
+            xs.data_ptr(), gs.data_ptr(), wp.data_ptr(), wt.data_ptr(),
+            aff.data_ptr(),
             work.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
             dw3.data_ptr(), daff.data_ptr(), n, h, w, c,
             torch.cuda.current_stream().cuda_stream)
@@ -225,13 +420,20 @@ bottleneck_bwd.launches = 0
 class _FusedBottleneck(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, w2, w3, *affines):
+        # The forward half of the packed weights, once a step for B6f and
+        # B6b (on the CPU the plain versions take the weights as they are).
+        packed = (pack_weights(w1, w2, w3, False) if x.device.type == "cuda"
+                  else None)
         ctx.save_for_backward(x, w1, w2, w3, *affines)
-        return bottleneck_fwd(x, w1, w2, w3, affines)
+        ctx.packed = packed
+        return bottleneck_fwd(x, w1, w2, w3, affines, packed)
 
     @staticmethod
     def backward(ctx, g):
         x, w1, w2, w3, *affines = ctx.saved_tensors
-        grads = bottleneck_bwd(x, w1, w2, w3, affines, g.to(x.dtype))
+        grads = bottleneck_bwd(x, w1, w2, w3, affines, g.to(x.dtype),
+                               ctx.packed)
+        ctx.packed = None
         params = (x, w1, w2, w3, *affines)
         return tuple(d.to(p.dtype) if need else None
                      for d, p, need in zip(grads, params,

@@ -594,16 +594,42 @@ def test_pack_weights_layout():
     c = 64
     w1, w2, w3 = (torch.randn(s) for s in ((c, 4 * c, 1, 1), (c, c, 3, 3),
                                             (4 * c, c, 1, 1)))
-    p = tk.pack_weights(w1, w2, w3, backward=True).float()
+    fwd = tk.pack_weights(w1, w2, w3, backward=False).float()
+    bwd = tk.pack_weights(w1, w2, w3, backward=True).float()
     bf = lambda t: t.to(torch.bfloat16).float()
-    sizes = [4 * c * c, 9 * c * c, 4 * c * c] * 2
-    m1, t2, m3, m1t, t2r, m3t = p.split(sizes)
-    torch.testing.assert_close(m1.view(c, 4 * c), bf(w1).view(c, 4 * c))
-    # [co][tap = 3 ky + kx][ci]
-    torch.testing.assert_close(t2.view(c, 3, 3, c)[5, 1, 2, 7],
-                               bf(w2)[5, 7, 1, 2])
-    torch.testing.assert_close(t2r.view(c, 3, 3, c)[5, 1, 2, 7],
-                               bf(w2)[7, 5, 1, 0])
-    torch.testing.assert_close(m3.view(4 * c, c), bf(w3).view(4 * c, c))
-    torch.testing.assert_close(m1t.view(4 * c, c), bf(w1).view(c, 4 * c).t())
-    torch.testing.assert_close(m3t.view(c, 4 * c), bf(w3).view(4 * c, c).t())
+    m1, t2, m3 = fwd.split([4 * c * c, 9 * c * c, 4 * c * c])
+    m3t, t2r, m1t = bwd.split([4 * c * c, 9 * c * c, 4 * c * c])
+    # Each matrix [N][K] as ring chunks: [pass of np_ rows][64-deep step]
+    # [row][64], the 16-byte chunk j of row r at j ^ (r % 8); np_ = 64 for
+    # w1, w2, w3^T and w2 rotated, 128 for w3 and w1^T at C = 64.
+    n1, n2, n3 = nt3, nt2, nt1 = tk.pass_widths(c)
+    assert (n1, n2, n3) == (64, 64, 128)
+
+    def at(chunks, n, k, row, col, np_):
+        p, r = divmod(row, np_)
+        s, kk = divmod(col, 64)
+        return chunks[((p * (k // 64) + s) * np_ + r) * 64
+                      + ((kk // 8) ^ (r % 8)) * 8 + kk % 8]
+    for row, col in ((0, 0), (5, 77), (63, 255), (9, 130)):
+        assert at(m1, c, 4 * c, row, col, n1) == bf(w1)[row, col, 0, 0]
+        assert at(m1t, 4 * c, c, col, row, nt1) == bf(w1)[row, col, 0, 0]
+        assert at(m3, 4 * c, c, col, row, n3) == bf(w3)[col, row, 0, 0]
+        assert at(m3t, c, 4 * c, row, col, nt3) == bf(w3)[col, row, 0, 0]
+    # w2: [co][tap = 3 ky + kx][ci]; the backward's rotated and swapped.
+    assert at(t2, c, 9 * c, 5, (3 * 1 + 2) * c + 7, n2) == bf(w2)[5, 7, 1, 2]
+    assert at(t2r, c, 9 * c, 5, (3 * 1 + 2) * c + 7, nt2) \
+        == bf(w2)[7, 5, 1, 0]
+    torch.testing.assert_close(tk.unpack_matrix(m1, c, 4 * c, n1),
+                               bf(w1).view(c, 4 * c), rtol=0, atol=0)
+    torch.testing.assert_close(tk.unpack_matrix(m3, 4 * c, c, n3),
+                               bf(w3).view(4 * c, c), rtol=0, atol=0)
+    torch.testing.assert_close(tk.unpack_matrix(m1t, 4 * c, c, nt1),
+                               bf(w1).view(c, 4 * c).t(), rtol=0, atol=0)
+    torch.testing.assert_close(tk.unpack_matrix(m3t, c, 4 * c, nt3),
+                               bf(w3).view(4 * c, c).t(), rtol=0, atol=0)
+    torch.testing.assert_close(
+        tk.unpack_matrix(t2, c, 9 * c, n2).view(c, 3, 3, c)[5, 1, 2, 7],
+        bf(w2)[5, 7, 1, 2])
+    torch.testing.assert_close(
+        tk.unpack_matrix(t2r, c, 9 * c, nt2).view(c, 3, 3, c)[5, 1, 2, 7],
+        bf(w2)[7, 5, 1, 0])
