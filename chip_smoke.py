@@ -8,11 +8,17 @@ Phases, each printed as one line with its result and wall time:
 1. env: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc.
 2. build: compile the kernels from ``simclr_tpu_torch/csrc`` (nvcc,
    one process per source, started together); hold the Python mirrors of
-   the kernels' constants and tilings (Winograd tile blocks, the C = 64
-   conv's tiles and row items) against the C side; print each kernel's
-   ptxas registers, shared memory and spills and any nvcc warning.
-3. ntxent: kernel B1 forward and backward against their plain versions
-   at 2N in {1024, 2048, 200}, D = 128, float32 (TF32 off on both sides).
+   the kernels' constants and tilings (NT-Xent's row tiles and column
+   ranges, Winograd tile blocks, the C = 64 conv's tiles and row items)
+   against the C side; print how many NT-Xent clusters the card holds at
+   once and each kernel's ptxas registers, shared memory and spills and any
+   nvcc warning; fail on a spill of a B1 kernel.
+3. ntxent: kernels B1f and B1b against their plain versions at
+   (2N, D) in {(1024, 128), (2048, 128), (200, 128), (200, 40),
+   (256, 2048), (64, 3)}, float32 (TF32 off in the plain versions); two
+   calls of each must give the same bits. Timed at 2N = 1024 by their
+   profiler device time (the wrapper's event time printed beside it),
+   with cuBLAS's float32 z @ z.T printed for reference.
 4. color: kernel B2 against its plain version at 512 CIFAR-sized images
    and 128 STL-sized ones.
 5. bn_relu: kernels B3a-c (the single-pass subset-BN(+add)+ReLU
@@ -94,6 +100,7 @@ TIME_BUDGET_S = 600.0
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12       # float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12     # bf16 on the tensor cores
+PEAK_TF32_FLOPS = 495e12     # tf32 on the tensor cores
 T0 = time.perf_counter()
 
 
@@ -232,14 +239,41 @@ def build():
             for c in bottleneck.WIDTHS):
         raise RuntimeError("bottleneck WIDTHS/TILE_ELEMS disagree with the "
                            "CUDA source")
+    # B1's tiling (mirrored by ntxent.geometry, held against ntxent.tiles
+    # by tests/test_torch_ntxent_geometry.py) at every shape of the ntxent
+    # phase; how many clusters of CLUSTER blocks the card holds at once
+    # (and, beside them, how many clusters of 8 at the same shared memory).
+    for n2, d in _B1_SHAPES:
+        for kernel in (0, 1):
+            if (lib.ntxent_geometry(n2, d, kernel, geom8) != 0
+                    or tuple(geom8) != ntxent.geometry(n2, d, kernel)):
+                raise RuntimeError("ntxent tiling disagrees with the CUDA "
+                                   "source")
+    resident = {(kernel, cl): lib.ntxent_max_active_clusters(kernel, cl)
+                for kernel in (0, 1) for cl in (ntxent.CLUSTER, 8)}
+    if min(resident.values()) < 1:
+        raise RuntimeError(f"ntxent clusters do not fit: {resident}")
+    clusters = ntxent.geometry(1024, 128, 0)[1]
+    waves = [-(-clusters // resident[kernel, ntxent.CLUSTER])
+             for kernel in (0, 1)]
+    print(f"  ntxent: clusters of {ntxent.CLUSTER} resident at once (fwd, "
+          f"bwd): {resident[0, ntxent.CLUSTER]}, "
+          f"{resident[1, ntxent.CLUSTER]}; of 8: {resident[0, 8]}, "
+          f"{resident[1, 8]}; 2N = 1024 takes {clusters} clusters "
+          f"({clusters * ntxent.CLUSTER} blocks) in {waves[0]}, {waves[1]} "
+          f"wave(s)")
     log = (lib_path.parent / "build.log").read_text()
     usage = _ptxas_usage(log)
     for name, frame, regs in usage:
         print(f"  ptxas: {name}: {regs}; {frame}")
     for line in log.splitlines():
-        # ptxas reports serialised wgmma (C7515) as information.
-        if "warning" in line or "C7515" in line:
+        # ptxas reports serialised wgmma (C7515, C7520) as information.
+        if "warning" in line or "C7515" in line or "C7520" in line:
             print(f"  nvcc: {line.strip()}")
+    spills = [(n, f) for n, f, _ in usage if n.startswith("ntxent_")
+              and re.search(r"[1-9]\d* bytes spill", f)]
+    if spills:
+        raise RuntimeError(f"B1 kernels spill: {spills}")
     return {"ptxas": usage,
             "summary": f"{lib_path.relative_to(lib_path.parents[2])}"}
 
@@ -279,35 +313,79 @@ def _correct_mismatch_ok(torch, z, inv_t, got, want):
     return bool((margin[bad] < 1e-4).all()), int(bad.sum())
 
 
+# B1's shapes: the main path's 2N = 1024 at D = 128, twice its batch, a
+# ragged 2N (and D) that leaves ranks of the cluster without columns, the
+# gate's widest D, and a D that is not a multiple of 4 (scalar loads).
+_B1_SHAPES = ((1024, 128), (2048, 128), (200, 128), (200, 40), (256, 2048),
+              (64, 3))
+
+
+def _kernel_ms(torch, calls, iters=20):
+    """Mean device time of one launch of each kernel in ``calls`` (the
+    part of its name to match: a call), over ``iters`` rounds of the calls
+    under one torch.profiler session: the wrappers' host time (Python,
+    allocations, the ctypes call) is left out, which event times around a
+    call of a few us cannot do. The profiler may miss a launch at its
+    start, so a mean is over the launches it saw (at least half)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for call in calls.values():
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            for call in calls.values():
+                call()
+        torch.cuda.synchronize()
+    times = {key: [] for key in calls}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = next((k for k in calls if k in e.name), None)
+            if key is not None:
+                times[key].append(e.time_range.elapsed_us() / 1e3)
+    out = {}
+    for key, ts in times.items():
+        if 2 * len(ts) < iters:
+            raise AssertionError(f"the profiler saw {len(ts)} launches of "
+                                 f"{key} in {iters} rounds")
+        out[key] = sum(ts) / len(ts)
+    return out
+
+
 @phase("ntxent")
 def ntxent_phase(torch):
     from simclr_tpu_torch.ops import losses
     from simclr_tpu_torch.ops.kernels import ntxent as k
-    d, inv_t = 128, 2.0
+    inv_t = 2.0
     gen = torch.Generator(device="cuda").manual_seed(0)
     err_f = err_b = 0.0
     notes = []
-    for n2 in (1024, 2048, 200):
+    for n2, d in _B1_SHAPES:
         # Positives correlated with their anchors, so most rows are right
         # and a few are not: both branches of `correct` are exercised.
         a = torch.randn(n2 // 2, d, device="cuda", generator=gen)
         b = a + 2.5 * torch.randn(n2 // 2, d, device="cuda", generator=gen)
         z = losses.l2_normalize(torch.cat([a, b]), dim=1).contiguous()
         loss_k, corr_k, lse_k = k.ntxent_fwd(z, inv_t)
+        if not all(torch.equal(x, y) for x, y in zip(
+                (loss_k, corr_k, lse_k), k.ntxent_fwd(z, inv_t))):
+            raise AssertionError(f"2N={n2} D={d}: two forward calls differ")
         loss_p, corr_p, lse_p = k.ntxent_fwd_plain(z, inv_t)
         e = max((loss_k - loss_p).abs().max().item(),
                 (lse_k - lse_p).abs().max().item())
         if not e < 2e-5:  # per-row values ~7; f32 sums in another order
-            raise AssertionError(f"2N={n2}: forward error {e}")
+            raise AssertionError(f"2N={n2} D={d}: forward error {e}")
         ok, n_bad = _correct_mismatch_ok(torch, z, inv_t, corr_k, corr_p)
         if not ok:
-            raise AssertionError(f"2N={n2}: correctness bits disagree")
+            raise AssertionError(f"2N={n2} D={d}: correctness bits disagree")
         g = torch.full((1,), 0.7, device="cuda")
         dz_k = k.ntxent_bwd(z, lse_p, inv_t, g)
+        if not torch.equal(dz_k, k.ntxent_bwd(z, lse_p, inv_t, g)):
+            raise AssertionError(f"2N={n2} D={d}: two backward calls differ")
         dz_p = k.ntxent_bwd_plain(z, lse_p, inv_t, g)
         eb = (dz_k - dz_p).abs().max().item()
         if not eb <= 1e-4 * dz_p.abs().max().item():
-            raise AssertionError(f"2N={n2}: backward error {eb}")
+            raise AssertionError(f"2N={n2} D={d}: backward error {eb}")
         # The autograd wrapper end to end against the plain loss.
         zz = torch.cat([a, b]).requires_grad_()
         lk, ak = k.nt_xent_loss_fused(zz[: n2 // 2], zz[n2 // 2:], 0.5)
@@ -316,34 +394,59 @@ def ntxent_phase(torch):
         zz.grad = None
         lp, ap = losses.nt_xent_loss(zz[: n2 // 2], zz[n2 // 2:], 0.5)
         lp.backward()
-        if not (abs(lk.item() - lp.item()) < 1e-5
-                and abs(ak.item() - ap.item()) <= 100.0 * n_bad / n2 + 1e-4
-                and (gk - zz.grad).abs().max() <= 1e-4 * zz.grad.abs().max()):
-            raise AssertionError(f"2N={n2}: autograd wrapper disagrees")
+        diffs = (abs(lk.item() - lp.item()), abs(ak.item() - ap.item()),
+                 ((gk - zz.grad).abs().max() / zz.grad.abs().max()).item())
+        if not (diffs[0] < 1e-5 and diffs[1] <= 100.0 * n_bad / n2 + 1e-4
+                and diffs[2] <= 1e-4):
+            raise AssertionError(f"2N={n2} D={d}: autograd wrapper disagrees "
+                                 f"(loss, accuracy, gradient): {diffs}")
         err_f, err_b = max(err_f, e), max(err_b, eb)
-        notes.append(f"2N={n2} fwd err {e:.2e} (tol 2e-5) bwd err {eb:.2e} "
-                     f"(tol 1e-4 of max) acc {ak.item():.1f}")
+        top = dz_p.abs().max().item()
+        notes.append(f"2N={n2} D={d} fwd err {e:.2e} (tol 2e-5) bwd err "
+                     f"{eb:.2e} (tol 1e-4 of max {top:.2e}) acc "
+                     f"{ak.item():.1f}; two calls bit-identical")
 
-    # Times at the main path's shape.
-    n2 = 1024
+    # Times at the main path's shape: the kernels by their profiler device
+    # time, the plain versions by CUDA events.
+    n2, d = 1024, 128
     z = losses.l2_normalize(torch.randn(n2, d, device="cuda",
                                         generator=gen), dim=1).contiguous()
     _, _, lse = k.ntxent_fwd_plain(z, inv_t)
     g = torch.ones(1, device="cuda")
-    fwd = dict(ms=time_ms(torch, lambda: k.ntxent_fwd(z, inv_t)),
-               plain_ms=time_ms(torch, lambda: k.ntxent_fwd_plain(z, inv_t)))
-    bwd = dict(ms=time_ms(torch, lambda: k.ntxent_bwd(z, lse, inv_t, g)),
-               plain_ms=time_ms(
-                   torch, lambda: k.ntxent_bwd_plain(z, lse, inv_t, g)))
+    calls = {"fwd": lambda: k.ntxent_fwd(z, inv_t),
+             "bwd": lambda: k.ntxent_bwd(z, lse, inv_t, g)}
+    plains = {"fwd": lambda: k.ntxent_fwd_plain(z, inv_t),
+              "bwd": lambda: k.ntxent_bwd_plain(z, lse, inv_t, g)}
     zb = n2 * d * 4
-    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
-        zb + 3 * n2 * 4, 2.0 * n2 * n2 * d, PEAK_F32_FLOPS)
-    bwd["bound_ms"], bwd["bound_by"] = bound_ms(
-        2 * zb + n2 * 4 + 4, 4.0 * n2 * n2 * d, PEAK_F32_FLOPS)
-    fwd["max_abs_err"], bwd["max_abs_err"] = err_f, err_b
-    return {"fwd": fwd, "bwd": bwd,
+    # Bytes (z in, per-row outputs or dz out) and the operations as the
+    # kernels do them: each product three times in tf32 on the tensor cores.
+    work = {"fwd": (zb + 3 * n2 * 4, 3 * 2.0 * n2 * n2 * d),
+            "bwd": (2 * zb + n2 * 4 + 4, 3 * 4.0 * n2 * n2 * d)}
+    device = _kernel_ms(torch, {f"ntxent_{name}_kernel": call
+                                for name, call in calls.items()}
+                        | {"gemm": lambda: z @ z.T})
+    out = {}
+    for name, call in calls.items():
+        t = dict(ms=device[f"ntxent_{name}_kernel"],
+                 plain_ms=time_ms(torch, plains[name]),
+                 max_abs_err=err_f if name == "fwd" else err_b)
+        n_bytes, flops = work[name]
+        t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, flops,
+                                                PEAK_TF32_FLOPS)
+        wrapper = time_ms(torch, call)
+        print(f"  B1{name[0]} at 2N={n2} D={d}: kernel {t['ms']:.4f} ms "
+              f"(profiler device time), wrapper {wrapper:.4f} ms (CUDA "
+              f"events over back-to-back calls), plain {t['plain_ms']:.4f}"
+              f" ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})",
+              flush=True)
+        out[name] = t
+    print(f"  cuBLAS float32 z @ z.T at 2N={n2} D={d} (reference, not the "
+          f"loss): {device['gemm']:.4f} ms device, "
+          f"{time_ms(torch, lambda: z @ z.T):.4f} ms by events", flush=True)
+    return {"fwd": out["fwd"], "bwd": out["bwd"],
             "summary": "; ".join(notes) + f"; at 2N=1024: fwd "
-                       f"{fwd['ms']:.4f} ms, bwd {bwd['ms']:.4f} ms"}
+                       f"{out['fwd']['ms']:.4f} ms, bwd "
+                       f"{out['bwd']['ms']:.4f} ms (device)"}
 
 
 @phase("color")

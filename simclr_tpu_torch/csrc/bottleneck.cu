@@ -136,6 +136,7 @@ using simclr::mbar_wait;
 using simclr::named_barrier;
 using simclr::sm_count;
 using simclr::smem_addr;
+using simclr::start_acc;
 using simclr::tma_load_2d;
 using simclr::tma_prefetch_map;
 using simclr::wgmma_commit;
@@ -404,19 +405,6 @@ __device__ int b6_trace_n;
   do {              \
   } while (0)
 #endif
-
-// Zeroes accumulators and hands them to the asynchronous proxy: ptxas
-// serialises every wgmma of a kernel whose accumulators another
-// instruction may define inside a pipeline stage (as an undefined value
-// does), so each pass starts from zeros, fenced, and every product
-// accumulates.
-template <int N>
-__device__ __forceinline__ void start_acc(float (&acc)[N]) {
-#pragma unroll
-  for (int e = 0; e < N; ++e) acc[e] = 0.f;
-  fence_operands(acc);
-  wgmma_fence();
-}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
   __nv_bfloat162 v = __floats2bfloat162_rn(a, b);

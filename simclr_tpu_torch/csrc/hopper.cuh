@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks for warp-specialised kernels: mbarriers,
 // TMA tensor and bulk copies into shared memory (bulk copies also
 // multicast to a cluster), thread block clusters (rank, barrier, remote
-// mbarrier arrive, launch), wgmma (warpgroup matrix multiply with A and B
-// from shared-memory descriptors, no-swizzle and 128-byte swizzle, or A
-// from registers) with its fences, transposed stmatrix, an mma.sync with a
-// zero accumulator, and the host-side tensor-map encoder, found through
-// the CUDA runtime's entry-point query (so the library needs no -lcuda).
+// mbarrier arrive, distributed shared-memory loads, launch), wgmma
+// (warpgroup matrix multiply, bf16 and tf32, with A and B from
+// shared-memory descriptors, no-swizzle and 128-byte swizzle, or A from
+// registers) with its fences and tf32 rounding, transposed stmatrix, an
+// mma.sync with a zero accumulator, and the host-side tensor-map encoder,
+// found through the CUDA runtime's entry-point query (so the library
+// needs no -lcuda).
 #pragma once
 
 #include <cstdint>
@@ -231,6 +233,36 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
           smem_addr(bar)),
       "r"(rank)
       : "memory");
+}
+
+// The shared-memory address at addr's offset in the block of rank `rank`
+// of the cluster, for ld_cluster (distributed shared memory).
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes from a cluster shared-memory address (map_rank), 16-byte
+// aligned; valid between two cluster_sync()s that order the writes.
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -510,6 +542,107 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "r"(accumulate));
 }
 
+// d (+)= A * B for a 64 x 32 x 8 tf32 product, float32 accumulate: A
+// (64 x 8) and B (32 x 8) K-major from shared memory (the only layout
+// tf32 takes); accumulate is 0 to overwrite d. Thread t of warp w holds
+// rows 16 w + t / 4 (d[4 j], d[4 j + 1]) and 16 w + t / 4 + 8 (d[4 j + 2],
+// d[4 j + 3]) of columns 8 j + 2 (t % 4) and + 1, j = 0..3. The tensor
+// core reads a tf32 operand's float32 bit pattern and ignores its low 13
+// bits (truncation), so an operand meant to be rounded is rounded before
+// it is stored (tf32_rna).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same for a 64 x 64 x 8 product (d as in wgmma_64x64x16).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A * B for a 64 x 128 x 8 tf32 product with A from registers:
+// thread t of warp w holds a[0] = A[16 w + t / 4][t % 4], a[1] the same
+// column 8 rows down, a[2] and a[3] those of column t % 4 + 4 (CUTLASS's
+// ALayout_64x8; not the accumulator's pairing of columns 2 (t % 4) and
+// + 1); B K-major from shared memory. The registers in a must not change
+// until the product is done, and a wgmma_fence must separate their
+// writing from it.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// x rounded to the nearest tf32 value (ties away from zero), as the
+// float32 bit pattern the tensor core reads.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Zeroes accumulators and hands them to the asynchronous proxy: ptxas
+// serialises every wgmma of a kernel whose accumulators another
+// instruction may define inside a pipeline stage (as an undefined value
+// does), so each pass starts from zeros, fenced, and every product
+// accumulates.
+template <int N>
+__device__ __forceinline__ void start_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] = 0.f;
+  fence_operands(acc);
+  wgmma_fence();
+}
 
 // Four 8 x 8 b16 matrices from registers to shared memory, transposed:
 // r[q] holds matrix q in mma_bf16's accumulator layout (thread t: row
@@ -612,6 +745,27 @@ inline bool matrix_tensor_map(CUtensorMap* map, const void* base,
   const cuuint32_t boxdim[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, boxdim, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map of a row-major float32 matrix (rows, cols) read in boxes of
+// box_rows rows x 32 columns (128 bytes) with the 128-byte swizzle: a box
+// lands as one atom column of the K-major tf32 operand tile that
+// desc_sw128 reads. Rows and columns outside the matrix arrive as zeros.
+// cols * 4 must be a multiple of 16 and base 16-byte aligned.
+inline bool float_matrix_tensor_map(CUtensorMap* map, const void* base,
+                                    long long rows, int cols, int box_rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
+  const cuuint32_t boxdim[2] = {32, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
                 const_cast<void*>(base), dims, strides, boxdim, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -31,6 +31,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_void_p so that 64-bit addresses are not cut to int).
 SIGNATURES = {
     "ntxent_max_dim": (),
+    "ntxent_geometry": (_I, _I, _I, _P),
+    "ntxent_max_active_clusters": (_I, _I),
     "ntxent_fwd": (_P, _P, _P, _P, _I, _I, _F, _P),
     "ntxent_bwd": (_P, _P, _P, _P, _I, _I, _F, _P),
     "color_max_hw": (),

@@ -1,10 +1,16 @@
-"""Fused NT-Xent loss: CUDA kernel B1 (``csrc/ntxent.cu``), its plain
-PyTorch version, and the autograd function around them.
+"""Fused NT-Xent loss: CUDA kernels B1f and B1b (``csrc/ntxent.cu``), their
+plain PyTorch versions, and the autograd function around them.
 
 Replaces ``simclr_tpu/ops/pallas/ntxent.py`` (``_fwd_kernel`` and
-``_bwd_kernel``). The kernel streams column tiles with an online max and
-sum, so unlike the Pallas kernel it has no upper limit on the batch; the
-source note in ``csrc/ntxent.cu`` says what bounds it on the H100.
+``_bwd_kernel``). The kernels run z z^T on the tensor cores in 3xTF32 (each
+operand split into two tf32 halves, three products into a float32
+accumulator), which keeps the loss and dz as close to the float32 plain
+versions as float32 itself is, where one TF32 product would not. A block
+owns 64 rows; a cluster of 4 blocks splits the columns into ranges and
+combines the rows' statistics (forward) or partial dz (backward) in
+rank order through distributed shared memory, so the result has the same
+bits on every run. ``geometry`` and ``tiles`` mirror that tiling; the source
+note in ``csrc/ntxent.cu`` says what bounds the kernels on the H100.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. Each kernel launch adds one to the
@@ -21,9 +27,60 @@ from simclr_tpu_torch.ops.kernels import _build
 from simclr_tpu_torch.ops.losses import VERY_LARGE_NUM, l2_normalize
 
 NEG = -VERY_LARGE_NUM
-# Largest feature dimension of the backward kernel: its per-block
-# accumulator of 16 x d floats lives in shared memory (csrc/ntxent.cu).
+# Largest feature dimension the gate takes (csrc/ntxent.cu's MAX_DIM). The
+# kernels loop over 128-wide feature blocks and need no limit; this is the
+# width chip_smoke.py checks them at.
 MAX_DIM = 2048
+# The kernels' tiling (csrc/ntxent.cu): rows a block, blocks a cluster (one
+# column range each), features a staged chunk and a block of dz, and the
+# column tile of the forward (0) and the backward (1).
+ROW_TILE = 64
+CLUSTER = 4
+FEATURE_BLOCK = 128
+COL_TILE = (128, 64)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def geometry(n2: int, d: int, kernel: int) -> Tuple[int, ...]:
+    """The tiling of kernel 0 (forward) or 1 (backward), as the C entry
+    ``ntxent_geometry`` gives it: rows a block, row tiles (clusters),
+    blocks a cluster, columns a range (ceil(n2 / CLUSTER) rounded up to the
+    column tile), column tile, features a chunk, feature chunks, and the
+    blocks of dz's features (grid.y; 1 for the forward)."""
+    bc = COL_TILE[kernel]
+    chunks = _cdiv(d, FEATURE_BLOCK)
+    return (ROW_TILE, _cdiv(n2, ROW_TILE), CLUSTER,
+            _cdiv(_cdiv(n2, CLUSTER), bc) * bc, bc, FEATURE_BLOCK, chunks,
+            chunks if kernel else 1)
+
+
+def tiles(n2: int, d: int, kernel: int):
+    """What each block does, in the kernels' loop order: one tuple a block
+    (row range, cluster rank, column tiles, feature chunks of the product,
+    features of dz it sums, rows it combines over the cluster), all as
+    half-open ranges clipped to the matrix. A block whose column range
+    lies past the end has no column tiles but still combines its rows."""
+    br, row_tiles, cluster, cols, bc, fk, chunks, fblocks = geometry(
+        n2, d, kernel)
+    k_chunks = [(k, min(k + fk, d)) for k in range(0, d, fk)]
+    out = []
+    for rt in range(row_tiles):
+        rows = (rt * br, min(rt * br + br, n2))
+        for rank in range(cluster):
+            start, end = rank * cols, min(rank * cols + cols, n2)
+            col_tiles = [(c, min(c + bc, end)) for c in range(start, end, bc)]
+            per = br // cluster
+            combined = (min(rows[0] + rank * per, n2),
+                        min(rows[0] + rank * per + per, n2))
+            for fb in range(fblocks):
+                feats = ((fb * fk, min(fb * fk + fk, d)) if kernel
+                         else (0, 0))
+                out.append((rows, rank, col_tiles, k_chunks, feats,
+                            combined))
+    return out
 
 
 def _masked_similarity(z: torch.Tensor, inv_t: float) -> torch.Tensor:
@@ -148,8 +205,8 @@ class NTXentCore(torch.autograd.Function):
 
 def supports(n: int, d: int) -> bool:
     """True where the kernels run: a batch of n >= 1 pairs (no upper limit,
-    the columns are streamed), 1 <= d <= MAX_DIM (the backward's shared
-    memory accumulator), and int32 element offsets."""
+    the columns are streamed), 1 <= d <= MAX_DIM, and int32 element
+    offsets."""
     return n >= 1 and 1 <= d <= MAX_DIM and 2 * n * d < 2 ** 31
 
 
