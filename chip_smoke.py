@@ -10,17 +10,22 @@ Phases, each printed as one line with its result and wall time:
    one process per source, started together); hold the Python mirrors of
    the kernels' constants and tilings (NT-Xent's row tiles and column
    ranges, Winograd tile blocks, the C = 64 conv's tiles and row items)
-   against the C side; print how many NT-Xent clusters the card holds at
-   once and each kernel's ptxas registers, shared memory and spills and any
-   nvcc warning; fail on a spill of a B1 kernel.
+   against the C side, and B2's instantiations and bulk spans at every
+   image size and offset; print how many NT-Xent clusters the card holds
+   at once and each kernel's ptxas registers, shared memory and spills and
+   any nvcc warning; fail on a spill of a B1 or B2 kernel.
 3. ntxent: kernels B1f and B1b against their plain versions at
    (2N, D) in {(1024, 128), (2048, 128), (200, 128), (200, 40),
    (256, 2048), (64, 3)}, float32 (TF32 off in the plain versions); two
    calls of each must give the same bits. Timed at 2N = 1024 by their
    profiler device time (the wrapper's event time printed beside it),
    with cuBLAS's float32 z @ z.T printed for reference.
-4. color: kernel B2 against its plain version at 512 CIFAR-sized images
-   and 128 STL-sized ones.
+4. color: kernel B2 against its plain version at 512 CIFAR-sized images,
+   128 STL-sized ones and ragged shapes (hw = 63, also from a buffer one
+   float in; a batch of one; one image of 128 x 128); two calls must give
+   the same bits. Timed at 512 x 32 x 32 by its profiler device time (the
+   wrapper's event time and the device time of ``images.clone()`` beside
+   it).
 5. bn_relu: kernels B3a-c (the single-pass subset-BN(+add)+ReLU
    backwards) against their plain versions in bf16 and float32 at the
    largest shapes of the bn_relu_fused path and at ragged small ones; the
@@ -76,6 +81,9 @@ limit, and as the last line ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py b6_split   # only B6's time split (also on an
                                      # archive of an earlier tree)
     python3 chip_smoke.py b6_trace   # B6 tile kernels' phase clocks
+    python3 chip_smoke.py color      # only phase 4 (also on an archive
+                                     # of an earlier tree)
+    python3 chip_smoke.py b2_trace   # B2 blocks' phase clocks
  Any failure
 exits non-zero without that line; so does a run without a GPU or outside
 the repository. Writes nothing but the kernel build under
@@ -188,6 +196,16 @@ def build():
         raise RuntimeError("ntxent MAX_DIM disagrees with the CUDA source")
     if lib.color_max_hw() != color.MAX_HW:
         raise RuntimeError("color MAX_HW disagrees with the CUDA source")
+    # B2's instantiation and bulk span (mirrored by color.geometry, held
+    # against a brute-force enumeration by
+    # tests/test_torch_color_geometry.py) at every image size and offset.
+    geom = (ctypes.c_int * 6)()
+    for hw in range(1, color.MAX_HW + 1):
+        for mis in (0, 4, 8, 12):
+            if (lib.color_geometry(hw, mis, geom) != 0
+                    or tuple(geom)[:5] != color.geometry(hw, mis)):
+                raise RuntimeError(f"color geometry at hw={hw}, mis={mis} "
+                                   "disagrees with the CUDA source")
     if (lib.bn_bwd_row_blocks(1, bn_relu.VEC) != 1
             or lib.bn_bwd_row_blocks(1, bn_relu.VEC + 1) != -1):
         raise RuntimeError("bn_relu VEC disagrees with the CUDA source")
@@ -270,10 +288,11 @@ def build():
         # ptxas reports serialised wgmma (C7515, C7520) as information.
         if "warning" in line or "C7515" in line or "C7520" in line:
             print(f"  nvcc: {line.strip()}")
-    spills = [(n, f) for n, f, _ in usage if n.startswith("ntxent_")
+    spills = [(n, f) for n, f, _ in usage
+              if (n.startswith("ntxent_") or n == "color_kernel")
               and re.search(r"[1-9]\d* bytes spill", f)]
     if spills:
-        raise RuntimeError(f"B1 kernels spill: {spills}")
+        raise RuntimeError(f"B1 or B2 kernels spill: {spills}")
     return {"ptxas": usage,
             "summary": f"{lib_path.relative_to(lib_path.parents[2])}"}
 
@@ -449,44 +468,149 @@ def ntxent_phase(torch):
                        f"{out['bwd']['ms']:.4f} ms (device)"}
 
 
+# B2's shapes: (images, height, width, dataset, offset of the images in
+# their buffer in floats). The main path's 512 CIFAR images, 128 STL-10
+# ones, hw = 63 (not a multiple of 4: the images start at every offset
+# modulo 16, so the bulk copies have heads and tails), the same one float
+# into a buffer (input and output at different offsets), a batch of one,
+# and one image of MAX_HW = 128 x 128 pixels.
+_B2_SHAPES = ((512, 32, 32, "cifar10", 0), (128, 96, 96, "stl10", 0),
+              (37, 7, 9, "cifar10", 0), (37, 7, 9, "cifar10", 1),
+              (1, 32, 32, "cifar10", 0), (1, 128, 128, "cifar10", 0))
+
+
+def _b2_inputs(torch, gen, n, h, w, offset=0):
+    from simclr_tpu_torch.config import AugmentConfig
+    from simclr_tpu_torch.ops.augment import sample_color_params
+    aug = AugmentConfig()
+    buf = torch.rand(offset + n * h * w * 3, device="cuda", generator=gen)
+    factors, sched = sample_color_params(
+        gen, n, aug.color_distort_strength, aug.color_jitter_prob,
+        aug.color_drop_prob)
+    return buf[offset:].view(n, h, w, 3), factors, sched
+
+
+def _b2_floor_ms(torch, imgs):
+    """Device time of ``imgs.clone()``, a copy of the same bytes in and
+    out (a contiguous clone is one cudaMemcpyAsync, device to device):
+    the practical floor for B2."""
+    return _kernel_ms(torch, {"Memcpy DtoD": imgs.clone})["Memcpy DtoD"]
+
+
 @phase("color")
 def color_phase(torch):
-    from simclr_tpu_torch.config import CIFAR10, STL10, AugmentConfig
-    from simclr_tpu_torch.ops.augment import sample_color_params
+    from simclr_tpu_torch.config import CIFAR10, STL10
     from simclr_tpu_torch.ops.kernels import color as k
-    aug = AugmentConfig()
+    sets = {"cifar10": CIFAR10, "stl10": STL10}
     gen = torch.Generator(device="cuda").manual_seed(1)
     err, notes, timing = 0.0, [], {}
-    for n, ds in ((512, CIFAR10), (128, STL10)):
-        size = ds.img_size
-        imgs = torch.rand(n, size, size, 3, device="cuda", generator=gen)
-        factors, sched = sample_color_params(
-            gen, n, aug.color_distort_strength, aug.color_jitter_prob,
-            aug.color_drop_prob)
+    for n, h, w, name, offset in _B2_SHAPES:
+        ds = sets[name]
+        imgs, factors, sched = _b2_inputs(torch, gen, n, h, w, offset)
         out_k = k.color_distort(imgs, factors, sched, ds.mean, ds.std)
+        if not torch.equal(out_k, k.color_distort(imgs, factors, sched,
+                                                  ds.mean, ds.std)):
+            raise AssertionError(f"{n}x{h}x{w}: two calls differ")
         out_p = k.color_distort_plain(imgs, factors, sched, ds.mean, ds.std)
         e = (out_k - out_p).abs().max().item()
         # Normalised values up to ~2.7; float32 with FMA contraction and
         # another summation order for the contrast mean.
         if not e < 1e-4:
-            raise AssertionError(f"{ds.name}: colour error {e}")
+            raise AssertionError(f"{n}x{h}x{w} {name}: colour error {e}")
         err = max(err, e)
-        notes.append(f"{ds.name} n={n} err {e:.2e} (tol 1e-4)")
-        if ds is CIFAR10:
+        notes.append(f"{n}x{h}x{w} {name}{' +1 float' if offset else ''} "
+                     f"err {e:.2e}")
+        if (n, h, w) == (512, 32, 32):
+            call = lambda: k.color_distort(imgs, factors, sched, ds.mean,
+                                           ds.std)
             timing = dict(
-                ms=time_ms(torch, lambda: k.color_distort(
-                    imgs, factors, sched, ds.mean, ds.std)),
+                ms=_kernel_ms(torch, {"color_kernel": call})["color_kernel"],
                 plain_ms=time_ms(torch, lambda: k.color_distort_plain(
                     imgs, factors, sched, ds.mean, ds.std)))
             n_bytes = 2 * imgs.numel() * 4 + factors.numel() * 4 \
                 + sched.numel() * 4
-            # ~30 float operations a pixel channel-triple per step.
+            # ~30 float operations a pixel channel-triple per step. The
+            # bytes are counted at the HBM rate, as for every kernel; at
+            # this size that is no lower bound, since the 12.6 MB stay in
+            # the 50 MB L2 and a copy of them beats it. So B2 is read
+            # against images.clone() of the same bytes, the copy floor.
             timing["bound_ms"], timing["bound_by"] = bound_ms(
-                n_bytes, 4 * 30 * n * size * size, PEAK_F32_FLOPS)
+                n_bytes, 4 * 30 * n * h * w, PEAK_F32_FLOPS)
+            wrapper, floor = time_ms(torch, call), _b2_floor_ms(torch, imgs)
+            print(f"  B2 at {n}x{h}x{w}: kernel {timing['ms']:.4f} ms "
+                  f"(profiler device time), wrapper {wrapper:.4f} ms (CUDA "
+                  f"events over back-to-back calls), plain "
+                  f"{timing['plain_ms']:.4f} ms; images.clone() "
+                  f"{floor:.4f} ms device (the copy floor), kernel / copy "
+                  f"{timing['ms'] / floor:.2f}; HBM byte bound "
+                  f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}; "
+                  "beaten by the copy at this size)", flush=True)
     timing["max_abs_err"] = err
     return {"timing": timing,
-            "summary": "; ".join(notes)
-                       + f"; at 512x32x32: {timing['ms']:.4f} ms"}
+            "summary": "; ".join(notes) + " (tol 1e-4; two calls "
+                       f"bit-identical); at 512x32x32: {timing['ms']:.4f} "
+                       f"ms (device), {timing['ms'] / floor:.2f}x the copy"}
+
+
+def _b2_c_call(torch, lib, imgs, factors, sched, ds):
+    """One B2 launch through a library's C entry ``color_distort``."""
+    n, h, w, _ = imgs.shape
+    out = torch.empty_like(imgs)
+    args = (imgs.data_ptr(), factors.data_ptr(), sched.data_ptr(),
+            out.data_ptr(), n, h * w, *map(float, ds.mean),
+            *map(float, ds.std))
+
+    def call():
+        status = lib.color_distort(*args,
+                                   torch.cuda.current_stream().cuda_stream)
+        if status:
+            raise RuntimeError(f"color_distort failed with {status}")
+        return out
+    return call
+
+
+def b2_trace(torch):
+    """Where a B2 block's time goes: a build with -DSIMCLR_B2_TRACE
+    records thread 0's clock64() in every block at its start, with the
+    image in registers, after the four steps, before the bulk store and at
+    its end (csrc/color.cu, B2_MARK), with the block's SM; for one call at
+    512 x 32 x 32, the mean and largest clocks of each phase over the
+    blocks, and each SM's span from its first block's start to its last
+    block's end."""
+    from simclr_tpu_torch.config import CIFAR10
+    from simclr_tpu_torch.ops.kernels import _build
+    lib = _build.load(_build.build(("-DSIMCLR_B2_TRACE",)))
+    lib.color_trace.argtypes = [ctypes.c_void_p]
+    lib.color_trace.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    imgs, factors, sched = _b2_inputs(torch, gen, 512, 32, 32)
+    call = _b2_c_call(torch, lib, imgs, factors, sched, CIFAR10)
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_longlong * (1024 * 6))()
+    if lib.color_trace(buf) != 1024:
+        raise RuntimeError("color_trace failed")
+    rows = [list(buf)[6 * i: 6 * i + 6] for i in range(512)]
+    names = ("in", "chain", "to smem", "store", "block")
+    spans = [[r[j + 1] - r[j] for j in range(1, 5)] + [r[5] - r[1]]
+             for r in rows]
+    text = ", ".join(
+        f"{name} {statistics.mean(v):.0f} (max {max(v)})"
+        for name, v in zip(names, zip(*spans)))
+    by_sm = {}
+    for r in rows:
+        by_sm.setdefault(r[0], []).append(r)
+    sm_span = [max(r[5] for r in v) - min(r[1] for r in v)
+               for v in by_sm.values()]
+    skew = [max(r[1] for r in v) - min(r[1] for r in v)
+            for v in by_sm.values()]
+    counts = sorted({len(v) for v in by_sm.values()})
+    print(f"  B2 trace 512x32x32 (clocks a block): {text}; {len(by_sm)} "
+          f"SMs with {counts} blocks each, an SM's span "
+          f"{statistics.mean(sm_span):.0f} (max "
+          f"{max(sm_span)}), its blocks' start skew "
+          f"{statistics.mean(skew):.0f} (max {max(skew)})", flush=True)
 
 
 # B3 comparisons: (wrapper, mode, NCHW shape). The first five are the
@@ -1631,6 +1755,14 @@ def main() -> int:
     info = env(torch)
     if sys.argv[1:] == ["b6_trace"]:
         b6_trace_phase(torch)
+        return 0
+    if sys.argv[1:] == ["color"]:
+        # Only B2's checks and times, e.g. on an archive of an earlier
+        # tree, for a before/after comparison in one call.
+        color_phase(torch)
+        return 0
+    if sys.argv[1:] == ["b2_trace"]:
+        b2_trace(torch)
         return 0
     if sys.argv[1:] == ["b6_split"]:
         # Only B6's time split (see _b6_split), e.g. on an archive of an

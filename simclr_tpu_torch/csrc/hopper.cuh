@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for warp-specialised kernels: mbarriers,
 // TMA tensor and bulk copies into shared memory (bulk copies also
-// multicast to a cluster), thread block clusters (rank, barrier, remote
+// multicast to a cluster) and out of it (TMA tensor stores, 1-D bulk
+// stores), thread block clusters (rank, barrier, remote
 // mbarrier arrive, distributed shared-memory loads, launch), wgmma
 // (warpgroup matrix multiply, bf16 and tf32, with A and B from
 // shared-memory descriptors, no-swizzle and 128-byte swizzle, or A from
@@ -199,6 +200,20 @@ __device__ __forceinline__ void bulk_load_multicast(void* dst,
       ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(
           smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of shared memory to contiguous global memory,
+// both ends 16-byte aligned: the inverse of bulk_load. The copy joins this
+// thread's bulk group (bulk_commit, then bulk_wait_read before the source
+// is overwritten or the block exits); the shared-memory writes it reads
+// must be made visible to it first (fence_proxy_async, then a barrier).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes)
       : "memory");
 }
 

@@ -36,6 +36,7 @@ SIGNATURES = {
     "ntxent_fwd": (_P, _P, _P, _P, _I, _I, _F, _P),
     "ntxent_bwd": (_P, _P, _P, _P, _I, _I, _F, _P),
     "color_max_hw": (),
+    "color_geometry": (_I, _I, _P),
     "color_distort": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _P),
     "bn_bwd_row_blocks": (_I, _I),
     "bn_bwd_relu": (_P,) * 6 + (_I, _I, _I, _P),
