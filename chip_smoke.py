@@ -34,12 +34,17 @@ Phases, each printed as one line with its result and wall time:
    aten's eval-mode BN backward, is checked and timed beside it.
 6. slice: full-width ResNet-50 SimCLR pretraining (default ``Config()``,
    batch 512 = 1,024 images a step) through ``init_simclr``,
-   ``build_engine`` and ``train_epoch`` over a synthetic CIFAR-10-shaped
-   dataset on the card. The launch counts are set to 0 just before and
-   read just after; every kernel of the path must have launched and
-   every loss must be finite.
-7. profile: two more slice steps under torch.profiler; the device's busy
-   share of the wall time and its time by kernel category and kernel.
+   ``build_engine`` and the graphed ``train_epoch`` over a synthetic
+   CIFAR-10-shaped dataset on the card: WARMUP_STEPS eager steps, the
+   capture and one replay, then 8 timed replays. The launch counts are
+   set to 0 just before and read just after; the wrappers count in the
+   eager steps and once in the capture, never in a replay, so every
+   count must be its per-step launches times WARMUP_STEPS + 1; every
+   loss must be finite.
+7. profile: two more replayed steps under torch.profiler; the device's
+   busy share of the wall time and its time by kernel category and
+   kernel; each wrapper's kernel, by name, must show the path's launches
+   a step.
 8. bnrelu_slice, bnrelu_profile: phases 6 and 7 again with
    ``ModelConfig(bn_relu_fused=True)``, whose block BNs run their
    backward through B3: 32 B3a, 16 B3b and 4 B3c launches a step.
@@ -74,6 +79,17 @@ Phases, each printed as one line with its result and wall time:
    ``fuse_identity_blocks`` in bf16, take two steps on the card (kernels)
    and on the CPU (plain versions) from the same weights, batch and
    augmentation draws; the losses must agree.
+14. graph: on the same four width-16 configurations, 3 replays of the
+   captured step against 3 eager steps from the same weights, Adam state,
+   generator state and rows: the draws bit for bit (and different from
+   one replay to the next), the losses and parameters within stated
+   tolerances, the replays under ``torch.cuda.set_sync_debug_mode
+   ("error")``; and capturable Adam against the default one.
+15. pretrain: ``pretrain()`` at full width on the default config, 4,096
+   synthetic images (80/20 split), 2 epochs with a checkpoint after
+   each, under torch.profiler (each epoch's seconds, steps/s, device
+   busy share and peak memory); a run resumed from the first epoch's
+   checkpoint must end where it did; the export must load back.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -87,7 +103,8 @@ limit, and as the last line ``{"ok": true, "device": {...}}``.
  Any failure
 exits non-zero without that line; so does a run without a GPU or outside
 the repository. Writes nothing but the kernel build under
-``simclr_tpu_torch/_build/``.
+``simclr_tpu_torch/_build/`` and the pretrain phase's checkpoints and
+export in a temporary directory that it removes.
 """
 
 from __future__ import annotations
@@ -1470,54 +1487,89 @@ def read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
 
 
+# Each kernel wrapper's launches a step on every path, and on the paths
+# that run them (the slice phases add theirs).
+_PER_STEP = {"ntxent_fwd": 1, "ntxent_bwd": 1, "color": 2}
+# A device kernel that each wrapper launches exactly once a call, by its
+# name in the profiler (B3's MODE is 0 relu, 1 add_relu, 2 no ReLU; B6's
+# tile kernel MODE 0 is B6f and 1 B6b's first pass; B4w's own reduce,
+# since B6b runs B4w's partial kernel for its dw2).
+_KERNEL_NAME = {
+    "ntxent_fwd": r"ntxent_fwd_kernel", "ntxent_bwd": r"ntxent_bwd_kernel",
+    "color": r"color_kernel",
+    "bn_bwd_relu": r"bn_bwd_kernel<[^<>]*, 0>",
+    "bn_bwd_add_relu": r"bn_bwd_kernel<[^<>]*, 1>",
+    "bn_bwd_norelu": r"bn_bwd_kernel<[^<>]*, 2>",
+    "conv64_fwd": r"conv64_fwd_kernel", "conv64_wgrad": r"conv64_wgrad_reduce",
+    "winograd_fwd": r"winograd_fwd_kernel",
+    "winograd_dw": r"winograd_dw_kernel",
+    "bottleneck_fwd": r"bottleneck_tile_kernel<\d+, 0>",
+    "bottleneck_bwd": r"bottleneck_tile_kernel<\d+, 1>",
+}
+
+
 def _run_slice(torch, smi, cfg, expected):
-    """Full-width ResNet-50 steps at batch 512; ``expected`` maps a
-    counter to the launches it must show a step (the others must be
-    above 0)."""
+    """Full-width ResNet-50 steps at batch 512 through the graphed
+    ``train_epoch``: its first call runs WARMUP_STEPS eager steps, captures
+    the step and replays it once; the timed call replays it. ``expected``
+    maps a counter to the launches it must show a step besides
+    ``_PER_STEP``. The wrappers count only where they launch: in the eager
+    steps and once in the capture, never in a replay."""
     from simclr_tpu_torch.data.datasets import synthetic_dataset
     from simclr_tpu_torch.data.pipeline import (
         DeviceDataset, epoch_permutation)
     from simclr_tpu_torch.ops.augment import augment_train_apply
     from simclr_tpu_torch.train.pretrain import (
-        _forward_pair, build_engine, init_simclr)
+        WARMUP_STEPS, _forward_pair, build_engine, init_simclr)
 
-    steps, batch = 6, cfg.train.batch_size
+    steps, batch, warm = 8, cfg.train.batch_size, WARMUP_STEPS
+    expected = {**_PER_STEP, **expected}
     images, labels = synthetic_dataset(4096, img_size=32, seed=0)
     ds = DeviceDataset.from_numpy(images, labels, "cuda")
     model, state, opt = init_simclr(cfg, seed=0, device="cuda")
     engine = build_engine(cfg, model, opt)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    idx_mat = epoch_permutation(gen, ds.n, batch)
+    idx_mat = torch.cat([epoch_permutation(gen, ds.n, batch)
+                         for _ in range(2)])
     n_params = sum(p.numel() for p in model.f.parameters())
-    # One warm-up step (cuDNN plans, allocator), not counted.
-    state, _ = engine.train_epoch(state, ds.images, idx_mat[:1], gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     start = time.perf_counter()
-    state, (losses, accs) = engine.train_epoch(state, ds.images,
-                                               idx_mat[1:steps + 1], gen)
+    state, _ = engine.train_epoch(state, ds.images, idx_mat[:warm + 1], gen)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - start
+    at_capture = read_counts()
+    start = time.perf_counter()
+    state, (losses, accs) = engine.train_epoch(
+        state, ds.images, idx_mat[warm + 1:warm + 1 + steps], gen)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = read_counts()
     losses, accs = losses.tolist(), accs.tolist()
     if not all(math.isfinite(v) for v in losses + accs):
         raise AssertionError(f"non-finite loss or accuracy: {losses}")
-    if not all(launches[n] for n in ("ntxent_fwd", "ntxent_bwd", "color",
-                                     *expected)):
+    if launches != at_capture or len(engine.graphs) != 1:
+        raise AssertionError(f"a replay counted launches or captured again:"
+                             f" {at_capture} then {launches}")
+    if not all(launches[n] for n in expected):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
-    for name, per_step in expected.items():
-        if launches[name] != per_step * steps:
-            raise AssertionError(f"{name}: {launches[name]} launches in "
-                                 f"{steps} steps, expected {per_step} a step")
-    if state.step != steps + 1 or n_params != 23_500_352:
+    # WARMUP_STEPS eager steps and the capture, one step's launches each.
+    for name, count in launches.items():
+        if count != expected.get(name, 0) * (warm + 1):
+            raise AssertionError(f"{name}: {count} launches in {warm} eager "
+                                 f"steps and the capture, expected "
+                                 f"{expected.get(name, 0)} a step")
+    if state.step != warm + 1 + steps or n_params != 23_500_352:
         raise AssertionError(f"step {state.step}, trunk params {n_params}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved_gib = torch.cuda.max_memory_reserved() / 2 ** 30
     # What one more forward leaves allocated for the backward (the tensors
     # autograd saved, and the two views), on an unused row of indices.
+    row = warm + 1 + steps
     base = torch.cuda.memory_allocated()
     pair = tuple(augment_train_apply(ds.images.index_select(
-        0, idx_mat[steps + 1]), p, cfg.dataset)
+        0, idx_mat[row]), p, cfg.dataset)
         for p in engine.sample_pair_params(gen, batch,
                                            *ds.images.shape[1:3]))
     z = _forward_pair(model, *pair)
@@ -1525,15 +1577,18 @@ def _run_slice(torch, smi, cfg, expected):
     kept_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
     del pair, z
     return {"launches": launches, "engine": engine, "state": state,
-            "images": ds.images, "idx": idx_mat[1:3], "gen": gen,
+            "images": ds.images, "idx": idx_mat[row + 1:row + 3], "gen": gen,
+            "expected": expected,
             "summary": f"ResNet-50 ({n_params} trunk params), batch {batch},"
-                       f" {steps} steps: losses "
-                       f"{[round(v, 4) for v in losses]}, acc "
+                       f" {warm} eager steps, the capture and 1 replay in "
+                       f"{first_s:.2f} s, then {steps} replayed steps: "
+                       f"losses {[round(v, 4) for v in losses]}, acc "
                        f"{[round(v, 2) for v in accs]}; "
                        f"{steps / seconds:.3f} steps/s, peak "
-                       f"{peak_gib:.2f} GiB ({kept_gib:.2f} GiB kept by a "
-                       f"forward for the backward) on {smi}; launches "
-                       f"{launches}"}
+                       f"{peak_gib:.2f} GiB allocated, {reserved_gib:.2f} GiB "
+                       f"reserved ({kept_gib:.2f} GiB kept by an "
+                       f"eager forward for the backward) on {smi}; launches"
+                       f" (eager steps + capture) {launches}"}
 
 
 @phase("slice")
@@ -1593,15 +1648,17 @@ _CATEGORIES = (  # first match wins, on the lower-cased kernel name
 
 
 def _profile(torch, run):
-    """Two more slice steps under torch.profiler: device busy share of the
-    wall time (the profiler's own overhead included) and device time by
-    kernel category, by kernel, and by the PyTorch op (and its input
-    shapes) that launched it."""
+    """Two more slice steps, replays of the captured step, under
+    torch.profiler: device busy share of the wall time (the profiler's own
+    overhead included) and device time by kernel category and by kernel
+    (a replay has no PyTorch op to charge it to). Each
+    wrapper's kernel (``_KERNEL_NAME``) must show the path's launches a
+    step by name, 0 where the path does not run it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     idx = run["idx"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         start = time.perf_counter()
         run["engine"].train_epoch(run["state"], run["images"], idx,
@@ -1616,30 +1673,29 @@ def _profile(torch, run):
     busy = sum(by_name.values())
     if not busy:
         raise AssertionError("the profiler saw no device time")
+    steps = len(idx)
+    named = {c: sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and re.search(pattern, e.name))
+             for c, pattern in _KERNEL_NAME.items()}
+    for c, count in named.items():
+        if count != run["expected"].get(c, 0) * steps:
+            raise AssertionError(f"{c}: {count} kernels named "
+                                 f"{_KERNEL_NAME[c]} in {steps} replayed "
+                                 f"steps; launches by name {named}")
     cats = {}
     for name, ms in by_name.items():
         low = name.lower()
         cat = next((c for c, keys in _CATEGORIES
                     if any(k in low for k in keys)), "other")
         cats[cat] = cats.get(cat, 0.0) + ms
-    steps = len(idx)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  kernel {ms / steps:8.3f} ms/step  {name[:100]}")
-    ops = [(e.key, e.self_device_time_total / 1e3)
-           for e in prof.key_averages()
-           if e.device_type == DeviceType.CPU and e.self_device_time_total]
-    for key, ms in sorted(ops, key=lambda kv: -kv[1])[:12]:
-        print(f"  op     {ms / steps:8.3f} ms/step  {key}")
-    shaped = [(e.key, str(e.input_shapes)[:90], e.count // steps,
-               e.self_device_time_total / 1e3)
-              for e in prof.key_averages(group_by_input_shape=True)
-              if e.device_type == DeviceType.CPU and e.self_device_time_total]
-    for key, shapes, count, ms in sorted(shaped, key=lambda r: -r[3])[:12]:
-        print(f"  shape  {ms / steps:8.3f} ms/step  {count:4d}x {key} "
-              f"{shapes}")
     cat_text = ", ".join(f"{c} {ms / steps:.2f}" for c, ms in
                          sorted(cats.items(), key=lambda kv: -kv[1]))
-    return {"summary": f"{steps} steps, wall {wall_ms / steps:.2f} ms/step,"
+    return {"summary": f"{steps} replayed steps, kernels by name a step "
+                       f"{ {c: n // steps for c, n in named.items() if n} }, "
+                       f"wall {wall_ms / steps:.2f} ms/step,"
                        f" device busy {busy / steps:.2f} ms/step "
                        f"({100 * busy / wall_ms:.1f}%); ms/step by "
                        f"category: {cat_text}"}
@@ -1743,6 +1799,294 @@ def parity_phase(torch):
     return {"summary": "; ".join(notes)}
 
 
+# Tolerances of the graph phase (replayed steps against eager ones on the
+# card, the same kernels and the same draws): the losses' relative
+# difference, and the parameters' change over the compared steps, as the
+# norm of (replayed - eager) over the norm of the eager change. cuDNN may
+# pick backward algorithms that sum with atomics, so two runs of one step
+# can differ in the last bits; Adam's first steps move an entry by about
+# lr * sign(gradient), so a gradient entry within that noise can move the
+# other way (as tests/test_torch_pretrain.py measures against JAX on the
+# CPU, 17% at worst there).
+_GRAPH_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+_GRAPH_PARAM_REL = 0.25
+# Capturable Adam against the default one, eagerly, three steps on the
+# same gradients at lr 1e-3. The capturable one computes 1 - beta2 ** t in
+# float32 on the device, where beta2 = 0.999 is 0.99900001: at t = 1 that
+# is 1.3e-5 off the host's double value, which moves an update by half as
+# much, 6.4e-9 at lr 1e-3, so three steps may move a parameter by about
+# 2e-8 (1.9e-8 seen on the card near 0, where 1e-8 failed). atol 1e-7
+# leaves a factor 5; rtol 1e-6 covers the float32 rounding of the larger
+# parameters.
+_ADAM_RTOL, _ADAM_ATOL = 1e-6, 1e-7
+
+
+def _adam_check(torch):
+    from simclr_tpu_torch.train.common import adam_torch
+    gen = torch.Generator().manual_seed(5)
+    shapes = ((64, 3, 3, 3), (512,), (128, 256))
+    p0 = [torch.randn(s, generator=gen) for s in shapes]
+    grads = [[torch.randn(s, generator=gen) * 10.0 ** -k for s in shapes]
+             for k in range(3)]
+    runs = []
+    for capturable in (True, False):
+        ps = [torch.nn.Parameter(p.cuda()) for p in p0]
+        opt = adam_torch(ps, 1e-3, 1e-6, capturable=capturable)
+        for g in grads:
+            for p, gi in zip(ps, g):
+                p.grad = gi.cuda()
+            opt.step()
+        runs.append([p.detach().cpu() for p in ps])
+    worst = 0.0
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, rtol=_ADAM_RTOL, atol=_ADAM_ATOL)
+        bound = _ADAM_ATOL + _ADAM_RTOL * b.abs()
+        worst = max(worst, ((a - b).abs() / bound).max().item())
+    return worst
+
+
+def _draws_equal(torch, a, b):
+    ta = [*a.boxes, a.flip, a.factors, a.schedule, a.sigma]
+    tb = [*b.boxes, b.flip, b.factors, b.schedule, b.sigma]
+    return all(torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def _clone_draws(torch, d):
+    return dataclasses.replace(
+        d, boxes=tuple(b.clone() for b in d.boxes), flip=d.flip.clone(),
+        factors=d.factors.clone(), schedule=d.schedule.clone(),
+        sigma=d.sigma.clone())
+
+
+@phase("graph")
+def graph_phase(torch):
+    """Width-16 models on the four paths: WARMUP_STEPS eager steps and the
+    capture, then N replays of the captured step (each its own one-row
+    epoch, under ``set_sync_debug_mode("error")``), against N eager steps
+    of a second model loaded with the first's weights, Adam state and
+    generator state after the capture, on the same rows."""
+    import copy
+    from simclr_tpu_torch.config import Config, ModelConfig
+    from simclr_tpu_torch.data.datasets import synthetic_dataset
+    from simclr_tpu_torch.data.pipeline import epoch_permutation
+    from simclr_tpu_torch.train.pretrain import (
+        WARMUP_STEPS, build_engine, init_simclr)
+
+    n_steps, batch, warm = 3, 40, WARMUP_STEPS
+    images = torch.from_numpy(
+        synthetic_dataset(batch * (warm + n_steps), 32, seed=4)[0]).cuda()
+    notes = [f"capturable Adam vs default, 3 steps: worst |diff| "
+             f"{_adam_check(torch):.2f} of atol {_ADAM_ATOL} + rtol "
+             f"{_ADAM_RTOL} |p|"]
+    for name, over, _, kernels in _PARITY:
+        small = dict(feature_dim=512, stage_sizes=(1, 1, 1, 1), width=16)
+        cfg = Config(model=ModelConfig(**{**small, **over}))
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                    batch_size=batch))
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        idx = epoch_permutation(gen, images.shape[0], batch)
+        model, state, opt = init_simclr(cfg, seed=0, device="cuda")
+        engine = build_engine(cfg, model, opt)
+        reset_counts()
+        state, _ = engine.train_epoch(state, images, idx[:warm], gen)
+        counts = read_counts()
+        if not all(counts[k] for k in ("ntxent_fwd", "ntxent_bwd", "color",
+                                       *kernels)):
+            raise AssertionError(f"{name}: a kernel did not run: {counts}")
+        (rec,) = engine.graphs.values()
+        # The eager twin, from the state the replays start from.
+        twin, twin_state, twin_opt = init_simclr(cfg, seed=0, device="cuda")
+        twin.load_state_dict(model.state_dict())
+        twin_opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+        twin_gen = torch.Generator(device="cuda")
+        twin_gen.set_state(gen.get_state())
+        twin_engine = build_engine(cfg, twin, twin_opt)
+        p0 = [p.detach().clone() for p in model.parameters()]
+        eager, replayed = [], []
+        for i in range(n_steps):
+            draws = twin_engine.sample_pair_params(twin_gen, batch, 32, 32)
+            twin_state, (loss, _) = twin_engine.train_step_on_params(
+                twin_state, images.index_select(0, idx[warm + i]), draws)
+            eager.append((draws, loss))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(n_steps):
+                state, (loss, _) = engine.train_epoch(
+                    state, images, idx[warm + i:warm + i + 1], gen)
+                replayed.append(((_clone_draws(torch, rec.draws[0]),
+                                  _clone_draws(torch, rec.draws[1])), loss))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if len(engine.graphs) != 1 or state.step != warm + n_steps:
+            raise AssertionError(f"{name}: captured {len(engine.graphs)} "
+                                 f"times, step {state.step}")
+        for i, ((de, le), (dr, lr_)) in enumerate(zip(eager, replayed)):
+            if not all(_draws_equal(torch, a, b) for a, b in zip(de, dr)):
+                raise AssertionError(f"{name}: replay {i} drew other view "
+                                     "parameters than the eager step")
+        for i in range(n_steps - 1):
+            if _draws_equal(torch, replayed[i][0][0], replayed[i + 1][0][0]):
+                raise AssertionError(f"{name}: replays {i} and {i + 1} drew "
+                                     "the same view parameters")
+        le = [l.item() for _, l in eager]
+        lr_ = [l.item() for _, l in replayed]
+        rtol = _GRAPH_LOSS_RTOL[cfg.model.compute_dtype]
+        loss_diff = max(abs(a - b) / abs(b) for a, b in zip(lr_, le))
+        change = torch.cat([(p - q).flatten() for p, q in
+                            zip(twin.parameters(), p0)]).norm()
+        diff = torch.cat([(p - q).flatten() for p, q in
+                          zip(model.parameters(), twin.parameters())]).norm()
+        rel = (diff / change).item()
+        same = all(torch.equal(p, q) for p, q in
+                   zip(model.parameters(), twin.parameters()))
+        if not (loss_diff <= rtol and rel <= _GRAPH_PARAM_REL):
+            raise AssertionError(f"{name}: replayed losses {lr_}, eager "
+                                 f"{le}; parameter difference {rel:.2e} of "
+                                 "the change")
+        notes.append(f"{name}: draws identical, varying; losses replayed "
+                     f"{[round(v, 6) for v in lr_]} eager "
+                     f"{[round(v, 6) for v in le]} (max rel {loss_diff:.1e},"
+                     f" tol {rtol}); parameters {rel:.1e} of the change "
+                     f"(tol {_GRAPH_PARAM_REL}), bit-identical: {same}")
+        del engine, twin_engine, rec
+        gc.collect()
+    return {"summary": "no sync in the replays; " + "; ".join(notes)}
+
+
+def _busy_by_epoch(torch, prof):
+    """Each ``train_epoch n`` annotation's wall time and the device time
+    of the kernels and copies that started inside it (not the device-side
+    spans of pretrain()'s own annotations)."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    spans = {e.name: (e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == DeviceType.CPU
+             and e.name.startswith("train_epoch ")}
+    kernels = [(e.time_range.start, e.time_range.elapsed_us())
+               for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("train_epoch ", "eval_epoch "))]
+    out = {}
+    for name, (t0, t1) in sorted(spans.items()):
+        busy = sum(us for start, us in kernels if t0 <= start <= t1)
+        out[name] = (t1 - t0, busy)
+    return out
+
+
+@phase("pretrain")
+def pretrain_phase(torch, smi):
+    """``pretrain()`` at full width on the default config over 4,096
+    synthetic CIFAR-shaped images (80/20 split: 6 steps an epoch and a
+    one-batch validation epoch), 2 epochs with a checkpoint after each,
+    under torch.profiler; then a second run resumed from the first
+    epoch's checkpoint must end where the first did, and the export must
+    load back."""
+    import shutil
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from simclr_tpu_torch.config import Config
+    from simclr_tpu_torch.data.datasets import synthetic_dataset
+    from simclr_tpu_torch.data.pipeline import (
+        DeviceDataset, Split, split_indices)
+    from simclr_tpu_torch.models.simclr import SimCLR
+    from simclr_tpu_torch.train.pretrain import pretrain, resolve_model_config
+    from simclr_tpu_torch.utils.checkpoint import load_exported_model
+    from simclr_tpu_torch.utils.profiling import read_metrics
+
+    images, labels = synthetic_dataset(4096, img_size=32, seed=0)
+    tr, va = split_indices(4096, 0.2)
+    split = Split(DeviceDataset.from_numpy(images[tr], labels[tr], "cuda"),
+                  DeviceDataset.from_numpy(images[va], labels[va], "cuda"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    try:
+        base = Config()
+        cfg = base.replace(
+            train=dataclasses.replace(base.train, n_epoch=2,
+                                      save_ckpt_every=1),
+            out_dir=f"{tmp}/out", ckpt_dir=f"{tmp}/ckpt")
+        peaks, lines = [], []
+
+        def log(line):
+            # Replays allocate nothing: the graph's private pool counts as
+            # reserved, not allocated, so both peaks are printed.
+            lines.append(line)
+            if line.startswith("checkpoint saved"):
+                peaks.append((torch.cuda.max_memory_allocated() / 2 ** 30,
+                              torch.cuda.max_memory_reserved() / 2 ** 30))
+                torch.cuda.reset_peak_memory_stats()
+
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run = pretrain(cfg, split, log=log, save_plots=False,
+                           metrics_path=f"{tmp}/metrics.jsonl")
+        busy = _busy_by_epoch(torch, prof)
+        records = [r for r in read_metrics(f"{tmp}/metrics.jsonl")
+                   if "train_loss" in r]
+        hist = run.history.to_dict()
+        values = [v for k in ("loss", "accuracy") for s in hist[k].values()
+                  for v in s]
+        if (len(records) != 2 or len(hist["loss"]["valid"]) != 2
+                or not all(math.isfinite(v) for v in values)):
+            raise AssertionError(f"history {hist}, metrics {records}")
+        final = {k: v.detach().clone() for k, v in
+                 run.state.model.state_dict().items()}
+        start = torch.load(f"{tmp}/ckpt/epoch_00000/state.pt",
+                           map_location="cuda", weights_only=True)["model"]
+        steps = run.state.step
+        del run
+        _release(torch, {})
+        resumed = pretrain(cfg, split, log=lines.append, save_plots=False,
+                           resume_from=f"{tmp}/ckpt/epoch_00000")
+        rhist = resumed.history.to_dict()
+        if (rhist["loss"]["train"][0] != hist["loss"]["train"][0]
+                or resumed.state.step != steps):
+            raise AssertionError(f"resumed history {rhist}, steps "
+                                 f"{resumed.state.step} vs {steps}")
+        got = resumed.state.model.state_dict()
+        same = all(torch.equal(got[k], final[k]) for k in final)
+        # The graph phase's tolerances: the second epoch's mean loss, and
+        # the parameters' distance over their change in that epoch.
+        params = [k for k, _ in resumed.state.model.named_parameters()]
+        apart = torch.cat([(final[k] - got[k]).float().flatten()
+                           for k in params]).norm().item()
+        change = torch.cat([(final[k] - start[k]).float().flatten()
+                            for k in params]).norm().item()
+        loss_diff = abs(rhist["loss"]["train"][1] - hist["loss"]["train"][1])
+        rtol = _GRAPH_LOSS_RTOL[cfg.model.compute_dtype]
+        if not (loss_diff <= rtol * abs(hist["loss"]["train"][1])
+                and apart <= _GRAPH_PARAM_REL * change):
+            raise AssertionError(f"resumed run ended elsewhere: epoch-2 loss"
+                                 f" {rhist['loss']['train'][1]} vs "
+                                 f"{hist['loss']['train'][1]}, parameters "
+                                 f"{apart:.3e} apart (changed {change:.3e})")
+        sd, cfg_json = load_exported_model(resumed.export_path)
+        model = SimCLR(resolve_model_config(cfg).model)
+        model.load_state_dict(sd)
+        if cfg_json["train"]["n_epoch"] != 2 or not all(
+                torch.equal(sd[k], got[k].cpu()) for k in got):
+            raise AssertionError("the export did not load back")
+        del resumed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for (name, (wall_us, busy_us)), rec, (alloc, reserved) in zip(
+            busy.items(), records, peaks):
+        print(f"  {name}: {rec['epoch_seconds']:.3f} s, "
+              f"{rec['steps_per_sec']:.3f} steps/s, device busy "
+              f"{100 * busy_us / wall_us:.1f}% of {wall_us / 1e3:.1f} ms "
+              f"(profiled), peak {alloc:.2f} GiB allocated, {reserved:.2f} "
+              f"GiB reserved, on {smi}")
+    return {"summary": f"2 epochs of 6 steps (train losses "
+                       f"{[round(v, 4) for v in hist['loss']['train']]}, "
+                       f"valid {[round(v, 4) for v in hist['loss']['valid']]}"
+                       f"); resumed from epoch 1: parameters bit-identical "
+                       f"{same} ({apart:.2e} apart, changed {change:.2e} in "
+                       f"epoch 2), "
+                       f"epoch-2 loss {rhist['loss']['train'][1]:.6f} vs "
+                       f"{hist['loss']['train'][1]:.6f}; export loads back"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1798,6 +2142,8 @@ def main() -> int:
     fused_launches = fsl["launches"]
     _release(torch, fsl)
     parity_phase(torch)
+    graph_phase(torch)
+    pretrain_phase(torch, info["smi"])
 
     src = "simclr_tpu_torch/csrc/"
     b3_src = "simclr_tpu/ops/pallas/bn_relu.py:"

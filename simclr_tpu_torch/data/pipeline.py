@@ -2,17 +2,24 @@
 
 Counterpart of ``simclr_tpu/data/pipeline.py``: the whole dataset lives on
 the device as uint8 NHWC, an epoch is an on-device permutation shaped into
-an index matrix, and a batch is a row gather from it.
+an index matrix, and a batch is a row gather from it. ``make_split``
+decides which samples live where for each training mode, with the JAX
+package's indices; augmentation runs inside the engine's step.
+
+``weighted_sample_indices``, ``infinite_stream`` and ``host_stream`` come
+with the trainers that use them (ROADMAP Queue A items 5, 8 and 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from simclr_tpu_torch.config import Config
+from simclr_tpu_torch.data.datasets import load_dataset
 from simclr_tpu_torch.utils.device import resolve_device
 
 SPLIT_SEED = 42  # reference: data.py:304 (np.random.seed(42)).
@@ -38,6 +45,12 @@ class DeviceDataset:
             torch.from_numpy(np.asarray(labels, np.int32)).to(dev))
 
 
+@dataclasses.dataclass
+class Split:
+    train: DeviceDataset
+    val: Optional[DeviceDataset] = None
+
+
 def split_indices(n: int, val_fraction: float,
                   seed: int = SPLIT_SEED) -> Tuple[np.ndarray, np.ndarray]:
     """Deterministic 80/20-style split (reference: data.py:315-317); the
@@ -46,6 +59,12 @@ def split_indices(n: int, val_fraction: float,
     perm = rng.permutation(n)
     n_val = int(val_fraction * n)
     return perm[n_val:], perm[:n_val]
+
+
+def class_weights(labels: np.ndarray) -> np.ndarray:
+    """Per-sample weights 1/class-count (reference: data.py:220-238)."""
+    counts = np.bincount(labels, minlength=labels.max() + 1)
+    return 1.0 / counts[labels]
 
 
 def epoch_permutation(generator: torch.Generator, n: int, batch_size: int,
@@ -65,3 +84,58 @@ def take_batch(ds: DeviceDataset, idx: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather one batch by indices, on the dataset's device."""
     return ds.images.index_select(0, idx), ds.labels.index_select(0, idx)
+
+
+def iterate_epoch(
+    ds: DeviceDataset, generator: torch.Generator, batch_size: int,
+    drop_remainder: bool = True,
+) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Shuffled batches of one epoch; ``generator`` lives on the dataset's
+    device."""
+    idx = epoch_permutation(generator, ds.n, batch_size, drop_remainder)
+    for step in range(idx.shape[0]):
+        yield take_batch(ds, idx[step])
+
+
+def iterate_sequential(
+    ds: DeviceDataset, batch_size: int,
+) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Unshuffled iteration incl. the final partial batch (test loaders,
+    reference: data.py:425-434 shuffle=False)."""
+    for start in range(0, ds.n, batch_size):
+        stop = min(start + batch_size, ds.n)
+        yield ds.images[start:stop], ds.labels[start:stop]
+
+
+def make_split(cfg: Config, mode: str,
+               device: "str | torch.device" = "cuda") -> Split:
+    """The device-resident datasets of a training mode, as the JAX
+    package's ``make_split`` chooses them (reference:
+    get_cifar10_dataloader/get_stl10_dataloader, data.py:271-529):
+    'pretrain', 'lin_eval', 'fine_tune', 'supervised_bm', 'test'."""
+    name = cfg.dataset.name
+    val_frac = cfg.train.val_fraction
+
+    def split(images, labels):
+        tr, va = split_indices(images.shape[0], val_frac)
+        return Split(
+            DeviceDataset.from_numpy(images[tr], labels[tr], device),
+            DeviceDataset.from_numpy(images[va], labels[va], device))
+
+    if mode == "pretrain":
+        split_name = "unlabeled" if name == "stl10" else "train"
+        return split(*load_dataset(name, split_name, cfg.data_dir))
+    if mode in ("lin_eval", "supervised_bm"):
+        return split(*load_dataset(name, "train", cfg.data_dir))
+    if mode == "fine_tune":
+        images, labels = load_dataset(name, "train", cfg.data_dir)
+        if cfg.train.ssl_label_size >= 1.0:
+            return split(images, labels)
+        # 10%-label regime: the whole labelled pool on the device; the
+        # trainer draws weighted samples per epoch (no val split -
+        # reference: data.py:381-392).
+        return Split(DeviceDataset.from_numpy(images, labels, device))
+    if mode == "test":
+        images, labels = load_dataset(name, "test", cfg.data_dir)
+        return Split(DeviceDataset.from_numpy(images, labels, device))
+    raise NotImplementedError(f"unknown mode {mode!r}")

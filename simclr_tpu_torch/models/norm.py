@@ -32,6 +32,14 @@ def stats_rows(n: int, fraction: float, min_rows: int = 64) -> int:
     return min(max(int(n * fraction), min_rows), n)
 
 
+def subset_scale(n: int, k: int, dtype: torch.dtype,
+                 device: "str | torch.device") -> torch.Tensor:
+    """n / k in ``dtype``, the straight-through surrogate's scale: a device
+    fill, the bits of ``torch.tensor(n / k, dtype=dtype)`` without its
+    host-to-device copy, which a CUDA graph could not capture."""
+    return torch.full((), n / k, dtype=dtype, device=device)
+
+
 def _update_running(bn: nn.Module, mean: torch.Tensor, var: torch.Tensor,
                     m: int) -> None:
     """Flax-momentum running averages; the variance unbiased by m/(m-1)."""
@@ -129,7 +137,7 @@ class SubsetBatchNorm(nn.Module):
         mean_dt = mean.to(dt).view(cshape)
         rsig_dt = torch.rsqrt(var + self.eps).to(dt).view(cshape)
         sg = torch.Tensor.detach
-        est = torch.tensor(n / k, dtype=dt, device=x.device)
+        est = subset_scale(n, k, dt, x.device)
         if self.st_surrogate == "affine" and x_subset is None:
             rows = (torch.arange(n, device=x.device) < k).to(dt) * est
             me = rows.view((n,) + (1,) * (x.dim() - 1))

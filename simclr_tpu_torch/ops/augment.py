@@ -19,6 +19,7 @@ per-channel affine normalisation.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 from typing import Optional, Sequence, Tuple
@@ -219,6 +220,13 @@ def adjust_hue(images: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 _PERMS = np.array(list(itertools.permutations(range(4))), np.int32)
 
 
+@functools.cache
+def _perm_table(device: torch.device) -> torch.Tensor:
+    """``_PERMS`` on ``device``, copied there once: a host-to-device copy
+    in every step could not be captured in a CUDA graph."""
+    return torch.from_numpy(_PERMS).to(device)
+
+
 def sample_color_params(
     generator: torch.Generator,
     n: int,
@@ -249,7 +257,7 @@ def sample_color_params(
     factors = torch.stack([fb, fc, fs, fh, gray, pad, pad, pad], dim=1)
     perm_idx = torch.randint(0, len(_PERMS), (n,), generator=generator,
                              device=dev)
-    schedule = torch.as_tensor(_PERMS, device=dev)[perm_idx]
+    schedule = _perm_table(torch.device(dev))[perm_idx]
     return factors, schedule
 
 

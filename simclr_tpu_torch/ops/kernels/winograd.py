@@ -32,6 +32,8 @@ wrapper's ``launches``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -61,7 +63,10 @@ def supported(x_shape, w_shape, stride) -> bool:
             and n * h * w * max(c, k) < 2 ** 31)
 
 
-def _gmat(device) -> torch.Tensor:
+@functools.cache
+def _gmat(device: torch.device) -> torch.Tensor:
+    """G on ``device``, copied there once (a copy a call could not be
+    captured in a CUDA graph)."""
     return torch.tensor(_G, dtype=torch.float32, device=device)
 
 

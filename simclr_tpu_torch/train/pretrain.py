@@ -1,35 +1,64 @@
-"""SimCLR pretraining engine.
+"""SimCLR pretraining engine and entry point.
 
-Counterpart of ``init_simclr`` / ``build_engine`` in
-``simclr_tpu/train/pretrain.py``. One step: gather a uint8 batch from the
-device-resident dataset, augment two views (kernel B2 for the colour
-chain), one forward over all 2N images in ``channels_last``, NT-Xent
-(kernel B1 and its backward), backward, and torch-semantics Adam.
+Counterpart of ``simclr_tpu/train/pretrain.py``. One step: gather a uint8
+batch from the device-resident dataset, augment two views (kernel B2 for
+the colour chain), one forward over all 2N images in ``channels_last``,
+NT-Xent (kernel B1 and its backward), backward, and torch-semantics Adam.
 
-The JAX engine runs an epoch as one ``lax.scan`` dispatch. Here
-``train_epoch`` is a Python loop over the index matrix; capturing the step
-as one CUDA graph replayed over the epoch is later work.
+The JAX engine runs an epoch as one ``lax.scan`` dispatch. Here, on a CUDA
+device, ``train_epoch`` captures the step once as a CUDA graph and replays
+it for every row of the index matrix:
+
+  * the index row reaches the graph through a static buffer, and each
+    replay's loss and accuracy are copied into the epoch's output rows,
+    so the host never waits for the device inside the epoch;
+  * the augmentation draws come from a CUDA generator registered with the
+    graph: each replay advances it as the eager step would, so a replayed
+    epoch draws what an eager one draws;
+  * Adam is ``capturable`` (``init_simclr`` on a CUDA device);
+  * the first rows of the first epoch (``WARMUP_STEPS``) run eagerly on a
+    side stream before the capture, as PyTorch asks: they build the kernel
+    library, the index caches, cuDNN's plans and Adam's state. They are
+    real steps of the epoch, which takes each row exactly once.
+
+A capture that fails raises; on a CUDA device the epoch never falls back to
+the eager loop. On the CPU ``train_epoch`` is the eager loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+import os
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from simclr_tpu_torch.config import Config
+from simclr_tpu_torch.data.pipeline import (
+    DeviceDataset, Split, epoch_permutation, make_split)
 from simclr_tpu_torch.models.simclr import SimCLR
 from simclr_tpu_torch.ops.augment import (
     ViewParams, augment_train_apply, sample_view_params)
 from simclr_tpu_torch.ops.kernels.ntxent import nt_xent_loss_fused, supports
 from simclr_tpu_torch.ops.losses import modified_contrastive_loss
 from simclr_tpu_torch.train.common import (
-    TrainState, adam_torch, with_grad_accumulation)
+    History, TrainState, adam_torch, with_grad_accumulation)
+from simclr_tpu_torch.utils import checkpoint as ckpt_lib
 from simclr_tpu_torch.utils.device import resolve_device
+from simclr_tpu_torch.utils.profiling import MetricsLogger, annotate, trace
+from simclr_tpu_torch.utils.weights import simclr_from_jax
 
 LossFn = Callable[[torch.Tensor, torch.Tensor],
                   Tuple[torch.Tensor, torch.Tensor]]
+PairParams = Tuple[ViewParams, ViewParams]
+
+# Eager steps before the capture (PyTorch's recipe warms up on a side
+# stream); the first epoch's first rows.
+WARMUP_STEPS = 2
+_UNPORTED_MESH = ("data parallelism (mesh, engine='explicit') is not "
+                  "ported yet: ROADMAP Queue A item 11")
 
 
 def contrastive_fn(cfg: Config, device: "str | torch.device") -> LossFn:
@@ -61,40 +90,64 @@ def init_simclr(cfg: Config, seed: int = 0,
                 ) -> Tuple[SimCLR, TrainState, torch.optim.Optimizer]:
     """Build the model from ``seed`` (on the CPU, so the weights do not
     depend on the device), move it to ``device`` in channels_last, and
-    wrap it with Adam."""
+    wrap it with Adam (capturable on a CUDA device)."""
     dev = resolve_device(device)
     cfg = resolve_model_config(cfg)
     gen = torch.Generator().manual_seed(seed)
     model = SimCLR(cfg.model, generator=gen).to(
         dev, memory_format=torch.channels_last)
     optimizer = with_grad_accumulation(
-        adam_torch(model.parameters(), cfg.optim.lr, cfg.optim.wt_decay),
+        adam_torch(model.parameters(), cfg.optim.lr, cfg.optim.wt_decay,
+                   capturable=dev.type == "cuda"),
         cfg.train.accum_steps)
     return model, TrainState(model, optimizer), optimizer
 
 
-def _forward_pair(model: SimCLR, v1: torch.Tensor, v2: torch.Tensor
+def _nchw(v: torch.Tensor) -> torch.Tensor:
+    """An NHWC view as the NCHW tensor the model takes (its memory is
+    channels_last)."""
+    return v.permute(0, 3, 1, 2)
+
+
+def _forward_pair(model: SimCLR, v1: torch.Tensor, v2: torch.Tensor,
+                  two_pass: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One forward over both NHWC views; returns (z1, z2). The permute
-    gives NCHW tensors whose memory is channels_last."""
-    x = torch.cat([v1, v2], dim=0).permute(0, 3, 1, 2)
-    _, z = model(x)
+    """Forward both NHWC views; returns (z1, z2). One forward over the 2N
+    images, or with ``two_pass`` the reference's two sequential forwards,
+    each with its own BN batch statistics (model_utils.py:113-114)."""
+    if two_pass:
+        return model(_nchw(v1))[1], model(_nchw(v2))[1]
+    _, z = model(_nchw(torch.cat([v1, v2], dim=0)))
     return z.chunk(2, dim=0)
 
 
-PairParams = Tuple[ViewParams, ViewParams]
+@dataclasses.dataclass
+class CapturedStep:
+    """One train step captured as a CUDA graph, with the static tensors it
+    reads and writes."""
+
+    graph: Any                   # torch.cuda.CUDAGraph
+    images: torch.Tensor         # the dataset it gathers from (kept alive)
+    generator: torch.Generator   # registered with the graph
+    idx: torch.Tensor            # the index row of the next replay
+    metrics: torch.Tensor        # (2,): loss / accum_steps, accuracy %
+    draws: PairParams            # the view parameters of the last replay
 
 
 class PretrainEngine:
-    """Train steps and the epoch loop over a device-resident dataset."""
+    """Train and eval steps and epochs over a device-resident dataset."""
 
     def __init__(self, cfg: Config, model: SimCLR,
-                 optimizer: torch.optim.Optimizer, loss_fn: LossFn):
+                 optimizer: torch.optim.Optimizer, loss_fn: LossFn,
+                 two_pass_views: bool = False):
         self.cfg = cfg
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
+        self.two_pass_views = two_pass_views
         self.accum = max(cfg.train.accum_steps, 1)
+        # Captured steps, keyed by the dataset tensor and the batch shape.
+        self.graphs: Dict[tuple, CapturedStep] = {}
 
     def sample_pair_params(self, generator: torch.Generator, n: int,
                            in_h: int, in_w: int) -> PairParams:
@@ -102,28 +155,43 @@ class PretrainEngine:
         return (sample_view_params(generator, n, in_h, in_w, aug),
                 sample_view_params(generator, n, in_h, in_w, aug))
 
-    def train_step_on_params(self, state: TrainState, batch: torch.Tensor,
-                             params: PairParams):
-        """One step on a uint8 NHWC batch with given augmentation draws;
-        returns (state, (loss / accum_steps, accuracy %))."""
+    def _views(self, batch: torch.Tensor, params: PairParams):
         ds = self.cfg.dataset
+        return (augment_train_apply(batch, params[0], ds),
+                augment_train_apply(batch, params[1], ds))
+
+    def _update(self, batch: torch.Tensor, params: PairParams
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Forward, loss, backward and Adam on a uint8 NHWC batch with the
+        given draws; returns (loss / accum_steps, accuracy %). Touches no
+        host state, so a CUDA graph can capture it."""
         self.model.train()
-        v1 = augment_train_apply(batch, params[0], ds)
-        v2 = augment_train_apply(batch, params[1], ds)
-        z1, z2 = _forward_pair(self.model, v1, v2)
+        z1, z2 = _forward_pair(self.model, *self._views(batch, params),
+                               two_pass=self.two_pass_views)
         loss, acc = self.loss_fn(z1, z2)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
-        state.step += 1
         # History parity: the reference logs loss / accum_steps
         # (model_utils.py:116-117).
-        return state, (loss.detach() / self.accum, acc.detach())
+        return loss.detach() / self.accum, acc.detach()
+
+    def train_step_on_params(self, state: TrainState, batch: torch.Tensor,
+                             params: PairParams):
+        """One step on a uint8 NHWC batch with given augmentation draws;
+        returns (state, (loss / accum_steps, accuracy %))."""
+        metrics = self._update(batch, params)
+        state.step += 1
+        return state, metrics
 
     def train_step_on_batch(self, state: TrainState, batch: torch.Tensor,
                             generator: torch.Generator):
         params = self.sample_pair_params(generator, *batch.shape[:3])
         return self.train_step_on_params(state, batch, params)
+
+    # One step on a device batch: the hot function of the host-streaming
+    # path (JAX: train_step_direct).
+    train_step_direct = train_step_on_batch
 
     def train_step(self, state: TrainState, images: torch.Tensor,
                    idx: torch.Tensor, generator: torch.Generator):
@@ -134,7 +202,10 @@ class PretrainEngine:
     def train_epoch(self, state: TrainState, images: torch.Tensor,
                     idx_mat: torch.Tensor, generator: torch.Generator):
         """One step per row of ``idx_mat``; returns (state, (losses, accs))
-        as device tensors of shape (steps,)."""
+        as device tensors of shape (steps,). On a CUDA device the steps
+        are replays of one captured step (module docstring)."""
+        if images.device.type == "cuda":
+            return self._graphed_epoch(state, images, idx_mat, generator)
         losses, accs = [], []
         for idx in idx_mat:
             state, (loss, acc) = self.train_step(state, images, idx,
@@ -143,8 +214,288 @@ class PretrainEngine:
             accs.append(acc)
         return state, (torch.stack(losses), torch.stack(accs))
 
+    def _graphed_epoch(self, state, images, idx_mat, generator):
+        if idx_mat.device != images.device or generator.device.type != "cuda":
+            raise ValueError("a CUDA epoch takes its index matrix on the "
+                             "dataset's device and a CUDA generator")
+        steps = idx_mat.shape[0]
+        out = torch.empty((2, steps), device=images.device)
+        key = (images.data_ptr(), tuple(images.shape), images.dtype,
+               tuple(idx_mat.shape[1:]), idx_mat.dtype)
+        rec, first = self.graphs.get(key), 0
+        if rec is None:
+            first = min(WARMUP_STEPS, steps)
+            main = torch.cuda.current_stream(images.device)
+            side = torch.cuda.Stream(images.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for i in range(first):
+                    state, metrics = self.train_step(state, images,
+                                                     idx_mat[i], generator)
+                    out[:, i] = torch.stack(metrics)
+            main.wait_stream(side)
+            rec = self.graphs[key] = self._capture(images, idx_mat,
+                                                   generator)
+        elif rec.generator is not generator:
+            raise ValueError("the captured step draws from the generator "
+                             "it was captured with")
+        for i in range(first, steps):
+            rec.idx.copy_(idx_mat[i])
+            rec.graph.replay()
+            out[:, i].copy_(rec.metrics)
+        state.step += steps - first
+        return state, (out[0], out[1])
+
+    def _capture(self, images: torch.Tensor, idx_mat: torch.Tensor,
+                 generator: torch.Generator) -> CapturedStep:
+        idx = torch.zeros_like(idx_mat[0])
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        with torch.cuda.graph(graph):
+            batch = images.index_select(0, idx)
+            draws = self.sample_pair_params(generator, *batch.shape[:3])
+            metrics = torch.stack(self._update(batch, draws))
+        return CapturedStep(graph, images, generator, idx, metrics, draws)
+
+    @torch.no_grad()
+    def eval_step_on_views(self, v1: torch.Tensor, v2: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Eval-mode forwards of two NHWC views, NT-Xent forward only
+        (kernel B1f); returns (loss / accum_steps, accuracy %)."""
+        training = self.model.training
+        self.model.eval()
+        try:
+            _, z1 = self.model(_nchw(v1))
+            _, z2 = self.model(_nchw(v2))
+        finally:
+            self.model.train(training)
+        loss, acc = self.loss_fn(z1, z2)
+        return loss / self.accum, acc
+
+    def eval_step(self, state: TrainState, images: torch.Tensor,
+                  idx: torch.Tensor, generator: torch.Generator):
+        """test_auxi_classification parity (model_utils.py:12-38): an
+        augmented pair of the rows ``idx`` through the eval-mode model."""
+        batch = images.index_select(0, idx)
+        params = self.sample_pair_params(generator, *batch.shape[:3])
+        with torch.no_grad():
+            views = self._views(batch, params)
+        return self.eval_step_on_views(*views)
+
+    def eval_epoch(self, state: TrainState, images: torch.Tensor,
+                   idx_mat: torch.Tensor, generator: torch.Generator
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Means of loss / accum_steps and of accuracy over the rows, as
+        device scalars."""
+        losses, accs = zip(*(self.eval_step(state, images, idx, generator)
+                             for idx in idx_mat))
+        return torch.stack(losses).mean(), torch.stack(accs).mean()
+
 
 def build_engine(cfg: Config, model: SimCLR,
-                 optimizer: torch.optim.Optimizer) -> PretrainEngine:
+                 optimizer: torch.optim.Optimizer,
+                 two_pass_views: bool = False) -> PretrainEngine:
     device = next(model.parameters()).device
-    return PretrainEngine(cfg, model, optimizer, contrastive_fn(cfg, device))
+    return PretrainEngine(cfg, model, optimizer, contrastive_fn(cfg, device),
+                          two_pass_views)
+
+
+def evaluate_auxiliary(
+    engine: PretrainEngine,
+    state: TrainState,
+    ds: DeviceDataset,
+    batch_size: Optional[int] = None,
+    seed: int = 0,
+) -> Tuple[float, float]:
+    """Auxiliary-task (positive-pair retrieval) evaluation over a dataset
+    (reference: data.py:241-268 + utils/model_utils.py:12-38). Returns
+    (mean loss / accum_steps, mean top-1 %)."""
+    batch = batch_size or engine.cfg.train.batch_size
+    gen = torch.Generator(device=ds.images.device).manual_seed(seed)
+    idx_mat = epoch_permutation(gen, ds.n, batch)
+    loss, acc = engine.eval_epoch(state, ds.images, idx_mat, gen)
+    return float(loss), float(acc)
+
+
+def epoch_seed(seed: int, epoch: int) -> int:
+    """The sampling seed of one epoch, from (seed, epoch) alone, as JAX's
+    ``fold_in(k_data, epoch)``: a resumed run draws what an uninterrupted
+    one draws."""
+    return int(np.random.SeedSequence([seed, epoch]).generate_state(
+        1, np.uint64)[0])
+
+
+@dataclasses.dataclass
+class PretrainResult:
+    state: TrainState
+    history: History
+    export_path: Optional[str]
+    steps_per_sec: float
+    # Median per-epoch rate EXCLUDING the first epoch (warm-up steps and
+    # the capture); equals steps_per_sec when only one epoch ran.
+    steady_steps_per_sec: float = 0.0
+
+
+def _run_tag(cfg: Config) -> str:
+    t = cfg.train
+    return (f"{'mod_loss_' if t.modified_loss else ''}bs{t.batch_size}_"
+            f"nepoch{t.n_epoch}_{cfg.dataset.name}_"
+            f"temp{str(t.temperature).replace('.', '')}")
+
+
+def pretrain(
+    cfg: Config,
+    split: Optional[Split] = None,
+    mesh=None,
+    resume_from: Optional[str] = None,
+    two_pass_views: bool = False,
+    log: Callable[[str], None] = print,
+    save_checkpoints: Optional[bool] = None,
+    export_path: Optional[str] = None,
+    metrics_path: Optional[str] = None,
+    profile_dir: Optional[str] = None,
+    save_plots: bool = True,
+    engine: str = "pjit",
+    init_variables: Optional[dict] = None,
+    device: "str | torch.device" = "cuda",
+) -> PretrainResult:
+    """Full pretraining loop (reference: pretrain.py:56-94 +
+    utils/model_utils.py:41-173), with the JAX ``pretrain``'s arguments
+    and behaviour on one device: resume from a checkpoint path or
+    ``"auto"`` (the newest in ``cfg.ckpt_dir``), a validation epoch where
+    the validation split holds a batch, checkpoints every
+    ``save_ckpt_every`` epochs, a metrics JSONL, the export
+    ``simclr_..._temp{T}.pt`` in ``cfg.out_dir``, loss plots, and a
+    ``torch.profiler`` trace of the second epoch into ``profile_dir``.
+    ``init_variables`` seeds the weights from JAX-layout numpy
+    ``{'params', 'batch_stats'}`` trees. ``mesh`` and
+    ``engine='explicit'`` (data parallelism) raise NotImplementedError."""
+    if mesh is not None or engine == "explicit":
+        raise NotImplementedError(_UNPORTED_MESH)
+    if engine != "pjit":
+        raise ValueError(f"unknown engine {engine!r} "
+                         "(expected 'pjit' or 'explicit')")
+    dev = resolve_device(device)
+    tcfg = cfg.train
+    if split is None:
+        split = make_split(cfg, "pretrain", dev)
+    model, state, opt = init_simclr(cfg, tcfg.seed, dev)
+    eng = build_engine(cfg, model, opt, two_pass_views)
+    if init_variables is not None:
+        model.load_state_dict(simclr_from_jax(init_variables["params"],
+                                              init_variables["batch_stats"]))
+    gen = torch.Generator(device=dev)
+
+    history = History()
+    start_epoch = 0
+    if resume_from == "auto":
+        # Elastic restart: resume from the newest checkpoint if any exists
+        # (the reference requires an explicit --resume_training_path,
+        # pretrain.py:34-37).
+        resume_from = ckpt_lib.latest_checkpoint(cfg.ckpt_dir)
+        if resume_from is None:
+            log("auto-resume: no checkpoint found, starting fresh")
+    if resume_from:
+        # Reference resume: model + optimizer + epoch + histories
+        # (model_utils.py:75-86).
+        state, meta = ckpt_lib.load_checkpoint(resume_from, state, gen)
+        history = History.from_dict(meta.get("history"))
+        start_epoch = meta["epoch"] + 1
+        log(f"resumed from {resume_from} at epoch {start_epoch}")
+
+    if save_checkpoints is None:
+        save_checkpoints = tcfg.save_ckpt
+    batch = tcfg.batch_size
+    steps_per_epoch = split.train.n // batch
+    print_every = max(int(steps_per_epoch * tcfg.log_every_fraction), 1)
+    metrics = MetricsLogger(metrics_path) if metrics_path else None
+    profiled = False
+
+    total_steps = 0
+    t_train = 0.0
+    epoch_secs = []
+    for epoch in range(start_epoch, tcfg.n_epoch):
+        gen.manual_seed(epoch_seed(tcfg.seed, epoch))
+        idx_mat = epoch_permutation(gen, split.train.n, batch)
+
+        t0 = time.perf_counter()
+        with annotate(f"train_epoch {epoch + 1}"):
+            if profile_dir and not profiled and epoch > start_epoch:
+                # Trace the second epoch (the first runs the warm-up
+                # steps and the capture).
+                profiled = True
+                with trace(profile_dir):
+                    state, (losses, accs) = eng.train_epoch(
+                        state, split.train.images, idx_mat, gen)
+                    losses, accs = losses.cpu().numpy(), accs.cpu().numpy()
+            else:
+                state, (losses, accs) = eng.train_epoch(
+                    state, split.train.images, idx_mat, gen)
+                losses, accs = losses.cpu().numpy(), accs.cpu().numpy()
+        epoch_secs.append(time.perf_counter() - t0)
+        t_train += epoch_secs[-1]
+        total_steps += steps_per_epoch
+        if metrics:
+            metrics.log(
+                total_steps, epoch=epoch + 1,
+                train_loss=losses.mean(), train_acc=accs.mean(),
+                epoch_seconds=time.perf_counter() - t0,
+                steps_per_sec=steps_per_epoch
+                / max(time.perf_counter() - t0, 1e-9))
+
+        for s in range(0, steps_per_epoch, print_every):
+            log(f"Epoch: {epoch + 1} | Iteration {s} | "
+                f"Loss = {losses[s]:.4f} | Accuracy = {accs[s]:.4f}%")
+        history.append("train", losses.mean(), accs.mean())
+
+        if split.val is not None and split.val.n >= batch:
+            with annotate(f"eval_epoch {epoch + 1}"):
+                v_idx = epoch_permutation(gen, split.val.n, batch)
+                v_loss, v_acc = eng.eval_epoch(state, split.val.images,
+                                               v_idx, gen)
+                v_loss, v_acc = float(v_loss), float(v_acc)
+            log(f"Epoch: {epoch + 1} | avg valid loss: {v_loss:.4f} | "
+                f"avg valid accuracy: {v_acc:.4f}%")
+            history.append("valid", v_loss, v_acc)
+            if metrics:
+                metrics.log(total_steps, epoch=epoch + 1,
+                            valid_loss=v_loss, valid_acc=v_acc)
+
+        if save_checkpoints and (epoch + 1) % tcfg.save_ckpt_every == 0:
+            path = ckpt_lib.save_checkpoint(
+                cfg.ckpt_dir, epoch, state, history.to_dict(),
+                generator=gen)
+            log(f"checkpoint saved: {path}")
+
+    final_export = None
+    if export_path is not None or tcfg.n_epoch > start_epoch:
+        final_export = export_path or os.path.join(
+            cfg.out_dir, f"simclr_{_run_tag(cfg)}.pt")
+        ckpt_lib.export_model(final_export, model, cfg.to_json())
+        log(f"exported model: {final_export}")
+
+    if save_plots and history.loss["train"]:
+        # End-of-training loss/accuracy PNGs, like the reference
+        # (utils/model_utils.py:158-163 calling visualizations.py:222-242).
+        from simclr_tpu_torch.utils.visualizations import plot_loss_acc
+
+        os.makedirs(cfg.out_dir, exist_ok=True)
+        tag = _run_tag(cfg)
+        plot_loss_acc(history.loss["train"], history.accuracy["train"],
+                      title=f"train_{tag}", save_plot=True,
+                      save_dir=cfg.out_dir)
+        if history.loss["valid"]:
+            plot_loss_acc(history.loss["valid"],
+                          history.accuracy["valid"],
+                          title=f"valid_{tag}", save_plot=True,
+                          save_dir=cfg.out_dir)
+        log(f"saved loss/accuracy plots to {cfg.out_dir}")
+
+    if metrics:
+        metrics.close()
+    sps = total_steps / t_train if t_train > 0 else 0.0
+    warm = epoch_secs[1:] or epoch_secs
+    steady = (steps_per_epoch / float(np.median(warm))) if warm else sps
+    return PretrainResult(state=state, history=history,
+                          export_path=final_export, steps_per_sec=sps,
+                          steady_steps_per_sec=steady)
