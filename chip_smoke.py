@@ -84,12 +84,27 @@ Phases, each printed as one line with its result and wall time:
    generator state and rows: the draws bit for bit (and different from
    one replay to the next), the losses and parameters within stated
    tolerances, the replays under ``torch.cuda.set_sync_debug_mode
-   ("error")``; and capturable Adam against the default one.
+   ("error")``; and capturable Adam against the default one. Then the
+   fine-tune step (``train/ssl.py``, batch 64) the same way, against
+   eager steps from the same weights, SGD state, generator and rows, on
+   the default and bn_relu_fused configurations, and one more replay of
+   each under the profiler, where B3's launches show by name.
 15. pretrain: ``pretrain()`` at full width on the default config, 4,096
    synthetic images (80/20 split), 2 epochs with a checkpoint after
    each, under torch.profiler (each epoch's seconds, steps/s, device
    busy share and peak memory); a run resumed from the first epoch's
    checkpoint must end where it did; the export must load back.
+16. lin_eval: ``linear_evaluation`` of that export at full width on the
+   3,277 / 819 split (features at batch 512, 40 float32 L-BFGS
+   iterations at most): the loss falls from ln 10, all finite, the
+   first 16 images' features within 1e-2 of the CPU's; extraction
+   images/s, ms an L-BFGS iteration, top-1.
+17. ssl: ``train_ssl`` from the export (batch 64, 10% of the labels by
+   weighted draws: 5 steps an epoch), 2 epochs, tested on the 819:
+   ``f`` and ``g`` grafted, ``f`` moved and ``g`` not, a finite history;
+   seconds an epoch, steps/s, the busy share of two replayed steps under
+   the profiler, peak memory. Neither downstream path launches a kernel
+   of the port (their counts are read and must be 0).
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -103,8 +118,9 @@ limit, and as the last line ``{"ok": true, "device": {...}}``.
  Any failure
 exits non-zero without that line; so does a run without a GPU or outside
 the repository. Writes nothing but the kernel build under
-``simclr_tpu_torch/_build/`` and the pretrain phase's checkpoints and
-export in a temporary directory that it removes.
+``simclr_tpu_torch/_build/`` and, in a temporary directory that it
+removes at the end, the pretrain phase's checkpoints and the export that
+the downstream phases read.
 """
 
 from __future__ import annotations
@@ -115,9 +131,11 @@ import gc
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 TIME_BUDGET_S = 600.0
@@ -1519,8 +1537,9 @@ def _run_slice(torch, smi, cfg, expected):
     from simclr_tpu_torch.data.pipeline import (
         DeviceDataset, epoch_permutation)
     from simclr_tpu_torch.ops.augment import augment_train_apply
+    from simclr_tpu_torch.train.common import WARMUP_STEPS
     from simclr_tpu_torch.train.pretrain import (
-        WARMUP_STEPS, _forward_pair, build_engine, init_simclr)
+        _forward_pair, build_engine, init_simclr)
 
     steps, batch, warm = 8, cfg.train.batch_size, WARMUP_STEPS
     expected = {**_PER_STEP, **expected}
@@ -1647,22 +1666,16 @@ _CATEGORIES = (  # first match wins, on the lower-cased kernel name
 )
 
 
-def _profile(torch, run):
-    """Two more slice steps, replays of the captured step, under
-    torch.profiler: device busy share of the wall time (the profiler's own
-    overhead included) and device time by kernel category and by kernel
-    (a replay has no PyTorch op to charge it to). Each
-    wrapper's kernel (``_KERNEL_NAME``) must show the path's launches a
-    step by name, 0 where the path does not run it."""
+def _profiled(torch, fn):
+    """fn() under torch.profiler: (profile, wall ms, device ms by kernel
+    name). Fails where the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    idx = run["idx"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         start = time.perf_counter()
-        run["engine"].train_epoch(run["state"], run["images"], idx,
-                                  run["gen"])
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     by_name = {}
@@ -1670,14 +1683,35 @@ def _profile(torch, run):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
-    busy = sum(by_name.values())
-    if not busy:
+    if not sum(by_name.values()):
         raise AssertionError("the profiler saw no device time")
+    return prof, wall_ms, by_name
+
+
+def _named_launches(prof):
+    """Each wrapper's kernel (``_KERNEL_NAME``) counted by name in a
+    profile."""
+    from torch.autograd import DeviceType
+    return {c: sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and re.search(pattern, e.name))
+            for c, pattern in _KERNEL_NAME.items()}
+
+
+def _profile(torch, run):
+    """Two more slice steps, replays of the captured step, under
+    torch.profiler: device busy share of the wall time (the profiler's own
+    overhead included) and device time by kernel category and by kernel
+    (a replay has no PyTorch op to charge it to). Each
+    wrapper's kernel (``_KERNEL_NAME``) must show the path's launches a
+    step by name, 0 where the path does not run it."""
+    idx = run["idx"]
+    prof, wall_ms, by_name = _profiled(
+        torch, lambda: run["engine"].train_epoch(run["state"], run["images"],
+                                                 idx, run["gen"]))
+    busy = sum(by_name.values())
     steps = len(idx)
-    named = {c: sum(1 for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and re.search(pattern, e.name))
-             for c, pattern in _KERNEL_NAME.items()}
+    named = _named_launches(prof)
     for c, count in named.items():
         if count != run["expected"].get(c, 0) * steps:
             raise AssertionError(f"{c}: {count} kernels named "
@@ -1858,6 +1892,118 @@ def _clone_draws(torch, d):
         sigma=d.sigma.clone())
 
 
+def _crops_equal(torch, a, b):
+    return all(torch.equal(x, y) for x, y in
+               zip([*a.boxes, a.flip], [*b.boxes, b.flip]))
+
+
+def _clone_crops(d):
+    return dataclasses.replace(d, boxes=tuple(b.clone() for b in d.boxes),
+                               flip=d.flip.clone())
+
+
+def _finetune_graph_check(torch, name, over, kernels):
+    """The fine-tune step (``train/ssl.py``) of a width-16 model at batch
+    64 on one parity configuration: WARMUP_STEPS eager steps and the
+    capture, then N replays (each its own one-row epoch, under
+    ``set_sync_debug_mode("error")``) against N eager steps of a twin
+    loaded with the first's weights, SGD state and generator state after
+    the capture, on the same rows; then one more replay under the
+    profiler, where each wrapper's kernel must show its launches a step
+    by name."""
+    import copy
+    from simclr_tpu_torch.config import Config, ModelConfig
+    from simclr_tpu_torch.data.datasets import synthetic_dataset
+    from simclr_tpu_torch.data.pipeline import epoch_permutation
+    from simclr_tpu_torch.train.common import WARMUP_STEPS
+    from simclr_tpu_torch.train.ssl import SupervisedEngine, init_finetune
+
+    n_steps, batch, warm = 3, 64, WARMUP_STEPS
+    images, labels = synthetic_dataset(batch * (warm + n_steps + 1), 32,
+                                       seed=6)
+    images = torch.from_numpy(images).cuda()
+    labels = torch.from_numpy(labels.astype("int32")).cuda()
+    small = dict(feature_dim=512, stage_sizes=(1, 1, 1, 1), width=16)
+    cfg = Config(model=ModelConfig(**{**small, **over}))
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                micro_batch_size=batch))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    idx = epoch_permutation(gen, images.shape[0], batch)
+    model, state, opt = init_finetune(cfg, seed=0, device="cuda")
+    engine = SupervisedEngine(model, opt, cfg)
+    reset_counts()
+    state, _ = engine.train_epoch(state, images, labels, idx[:warm], gen)
+    counts = read_counts()
+    if not all(counts[k] for k in kernels) or any(
+            counts[k] for k in counts if k not in kernels):
+        raise AssertionError(f"fine-tune {name}: launches {counts}")
+    (rec,) = engine.graphs.values()
+    twin, twin_state, twin_opt = init_finetune(cfg, seed=0, device="cuda")
+    twin.load_state_dict(model.state_dict())
+    twin_opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+    twin_gen = torch.Generator(device="cuda")
+    twin_gen.set_state(gen.get_state())
+    twin_engine = SupervisedEngine(twin, twin_opt, cfg)
+    p0 = [p.detach().clone() for p in model.parameters()]
+    eager, replayed = [], []
+    for i in range(n_steps):
+        rows = idx[warm + i]
+        draws = twin_engine.sample_params(twin_gen, batch, 32, 32)
+        twin_state, (loss, _) = twin_engine.train_step_on_params(
+            twin_state, images.index_select(0, rows),
+            labels.index_select(0, rows), draws)
+        eager.append((draws, loss))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(n_steps):
+            state, (loss, _) = engine.train_epoch(
+                state, images, labels, idx[warm + i:warm + i + 1], gen)
+            replayed.append((_clone_crops(rec.draws), loss))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if len(engine.graphs) != 1 or state.step != warm + n_steps:
+        raise AssertionError(f"fine-tune {name}: captured "
+                             f"{len(engine.graphs)} times, step {state.step}")
+    for i, ((de, _), (dr, _)) in enumerate(zip(eager, replayed)):
+        if not _crops_equal(torch, de, dr):
+            raise AssertionError(f"fine-tune {name}: replay {i} drew other "
+                                 "crops than the eager step")
+    for i in range(n_steps - 1):
+        if _crops_equal(torch, replayed[i][0], replayed[i + 1][0]):
+            raise AssertionError(f"fine-tune {name}: replays {i} and {i + 1}"
+                                 " drew the same crops")
+    le = [l.item() for _, l in eager]
+    lr_ = [l.item() for _, l in replayed]
+    rtol = _GRAPH_LOSS_RTOL[cfg.model.compute_dtype]
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(lr_, le))
+    change = torch.cat([(p - q).flatten() for p, q in
+                        zip(twin.parameters(), p0)]).norm()
+    diff = torch.cat([(p - q).flatten() for p, q in
+                      zip(model.parameters(), twin.parameters())]).norm()
+    rel = (diff / change).item()
+    if not (loss_diff <= rtol and rel <= _GRAPH_PARAM_REL):
+        raise AssertionError(f"fine-tune {name}: replayed losses {lr_}, "
+                             f"eager {le}; parameter difference {rel:.2e} "
+                             "of the change")
+    per_step = {k: counts[k] // (warm + 1) for k in kernels}
+    prof, _, _ = _profiled(torch, lambda: engine.train_epoch(
+        state, images, labels, idx[warm + n_steps:], gen))
+    named = _named_launches(prof)
+    if any(named[k] != per_step.get(k, 0) for k in named):
+        raise AssertionError(f"fine-tune {name}: one replay launched "
+                             f"{named} by name, expected {per_step}")
+    del engine, twin_engine, rec
+    gc.collect()
+    return (f"fine-tune {name} (batch {batch}): crops identical, varying; "
+            f"losses replayed {[round(v, 6) for v in lr_]} eager "
+            f"{[round(v, 6) for v in le]} (max rel {loss_diff:.1e}, tol "
+            f"{rtol}); parameters {rel:.1e} of the change (tol "
+            f"{_GRAPH_PARAM_REL}); a replay's kernels by name "
+            f"{ {k: n for k, n in named.items() if n} }")
+
+
 @phase("graph")
 def graph_phase(torch):
     """Width-16 models on the four paths: WARMUP_STEPS eager steps and the
@@ -1869,8 +2015,8 @@ def graph_phase(torch):
     from simclr_tpu_torch.config import Config, ModelConfig
     from simclr_tpu_torch.data.datasets import synthetic_dataset
     from simclr_tpu_torch.data.pipeline import epoch_permutation
-    from simclr_tpu_torch.train.pretrain import (
-        WARMUP_STEPS, build_engine, init_simclr)
+    from simclr_tpu_torch.train.common import WARMUP_STEPS
+    from simclr_tpu_torch.train.pretrain import build_engine, init_simclr
 
     n_steps, batch, warm = 3, 40, WARMUP_STEPS
     images = torch.from_numpy(
@@ -1952,6 +2098,8 @@ def graph_phase(torch):
                      f"(tol {_GRAPH_PARAM_REL}), bit-identical: {same}")
         del engine, twin_engine, rec
         gc.collect()
+    for name, over, _, kernels in _PARITY[:2]:
+        notes.append(_finetune_graph_check(torch, name, over, kernels))
     return {"summary": "no sync in the replays; " + "; ".join(notes)}
 
 
@@ -1975,15 +2123,14 @@ def _busy_by_epoch(torch, prof):
 
 
 @phase("pretrain")
-def pretrain_phase(torch, smi):
+def pretrain_phase(torch, smi, tmp):
     """``pretrain()`` at full width on the default config over 4,096
     synthetic CIFAR-shaped images (80/20 split: 6 steps an epoch and a
     one-batch validation epoch), 2 epochs with a checkpoint after each,
     under torch.profiler; then a second run resumed from the first
     epoch's checkpoint must end where the first did, and the export must
-    load back."""
-    import shutil
-    import tempfile
+    load back. Writes under ``tmp``, which the caller removes; returns the
+    split and the export for the downstream phases."""
     from torch.profiler import ProfilerActivity, profile
     from simclr_tpu_torch.config import Config
     from simclr_tpu_torch.data.datasets import synthetic_dataset
@@ -1998,78 +2145,75 @@ def pretrain_phase(torch, smi):
     tr, va = split_indices(4096, 0.2)
     split = Split(DeviceDataset.from_numpy(images[tr], labels[tr], "cuda"),
                   DeviceDataset.from_numpy(images[va], labels[va], "cuda"))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
-    try:
-        base = Config()
-        cfg = base.replace(
-            train=dataclasses.replace(base.train, n_epoch=2,
-                                      save_ckpt_every=1),
-            out_dir=f"{tmp}/out", ckpt_dir=f"{tmp}/ckpt")
-        peaks, lines = [], []
+    base = Config()
+    cfg = base.replace(
+        train=dataclasses.replace(base.train, n_epoch=2,
+                                  save_ckpt_every=1),
+        out_dir=f"{tmp}/out", ckpt_dir=f"{tmp}/ckpt")
+    peaks, lines = [], []
 
-        def log(line):
-            # Replays allocate nothing: the graph's private pool counts as
-            # reserved, not allocated, so both peaks are printed.
-            lines.append(line)
-            if line.startswith("checkpoint saved"):
-                peaks.append((torch.cuda.max_memory_allocated() / 2 ** 30,
-                              torch.cuda.max_memory_reserved() / 2 ** 30))
-                torch.cuda.reset_peak_memory_stats()
+    def log(line):
+        # Replays allocate nothing: the graph's private pool counts as
+        # reserved, not allocated, so both peaks are printed.
+        lines.append(line)
+        if line.startswith("checkpoint saved"):
+            peaks.append((torch.cuda.max_memory_allocated() / 2 ** 30,
+                          torch.cuda.max_memory_reserved() / 2 ** 30))
+            torch.cuda.reset_peak_memory_stats()
 
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run = pretrain(cfg, split, log=log, save_plots=False,
-                           metrics_path=f"{tmp}/metrics.jsonl")
-        busy = _busy_by_epoch(torch, prof)
-        records = [r for r in read_metrics(f"{tmp}/metrics.jsonl")
-                   if "train_loss" in r]
-        hist = run.history.to_dict()
-        values = [v for k in ("loss", "accuracy") for s in hist[k].values()
-                  for v in s]
-        if (len(records) != 2 or len(hist["loss"]["valid"]) != 2
-                or not all(math.isfinite(v) for v in values)):
-            raise AssertionError(f"history {hist}, metrics {records}")
-        final = {k: v.detach().clone() for k, v in
-                 run.state.model.state_dict().items()}
-        start = torch.load(f"{tmp}/ckpt/epoch_00000/state.pt",
-                           map_location="cuda", weights_only=True)["model"]
-        steps = run.state.step
-        del run
-        _release(torch, {})
-        resumed = pretrain(cfg, split, log=lines.append, save_plots=False,
-                           resume_from=f"{tmp}/ckpt/epoch_00000")
-        rhist = resumed.history.to_dict()
-        if (rhist["loss"]["train"][0] != hist["loss"]["train"][0]
-                or resumed.state.step != steps):
-            raise AssertionError(f"resumed history {rhist}, steps "
-                                 f"{resumed.state.step} vs {steps}")
-        got = resumed.state.model.state_dict()
-        same = all(torch.equal(got[k], final[k]) for k in final)
-        # The graph phase's tolerances: the second epoch's mean loss, and
-        # the parameters' distance over their change in that epoch.
-        params = [k for k, _ in resumed.state.model.named_parameters()]
-        apart = torch.cat([(final[k] - got[k]).float().flatten()
-                           for k in params]).norm().item()
-        change = torch.cat([(final[k] - start[k]).float().flatten()
-                            for k in params]).norm().item()
-        loss_diff = abs(rhist["loss"]["train"][1] - hist["loss"]["train"][1])
-        rtol = _GRAPH_LOSS_RTOL[cfg.model.compute_dtype]
-        if not (loss_diff <= rtol * abs(hist["loss"]["train"][1])
-                and apart <= _GRAPH_PARAM_REL * change):
-            raise AssertionError(f"resumed run ended elsewhere: epoch-2 loss"
-                                 f" {rhist['loss']['train'][1]} vs "
-                                 f"{hist['loss']['train'][1]}, parameters "
-                                 f"{apart:.3e} apart (changed {change:.3e})")
-        sd, cfg_json = load_exported_model(resumed.export_path)
-        model = SimCLR(resolve_model_config(cfg).model)
-        model.load_state_dict(sd)
-        if cfg_json["train"]["n_epoch"] != 2 or not all(
-                torch.equal(sd[k], got[k].cpu()) for k in got):
-            raise AssertionError("the export did not load back")
-        del resumed
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = pretrain(cfg, split, log=log, save_plots=False,
+                       metrics_path=f"{tmp}/metrics.jsonl")
+    busy = _busy_by_epoch(torch, prof)
+    records = [r for r in read_metrics(f"{tmp}/metrics.jsonl")
+               if "train_loss" in r]
+    hist = run.history.to_dict()
+    values = [v for k in ("loss", "accuracy") for s in hist[k].values()
+              for v in s]
+    if (len(records) != 2 or len(hist["loss"]["valid"]) != 2
+            or not all(math.isfinite(v) for v in values)):
+        raise AssertionError(f"history {hist}, metrics {records}")
+    final = {k: v.detach().clone() for k, v in
+             run.state.model.state_dict().items()}
+    start = torch.load(f"{tmp}/ckpt/epoch_00000/state.pt",
+                       map_location="cuda", weights_only=True)["model"]
+    steps = run.state.step
+    del run
+    _release(torch, {})
+    resumed = pretrain(cfg, split, log=lines.append, save_plots=False,
+                       resume_from=f"{tmp}/ckpt/epoch_00000")
+    rhist = resumed.history.to_dict()
+    if (rhist["loss"]["train"][0] != hist["loss"]["train"][0]
+            or resumed.state.step != steps):
+        raise AssertionError(f"resumed history {rhist}, steps "
+                             f"{resumed.state.step} vs {steps}")
+    got = resumed.state.model.state_dict()
+    same = all(torch.equal(got[k], final[k]) for k in final)
+    # The graph phase's tolerances: the second epoch's mean loss, and
+    # the parameters' distance over their change in that epoch.
+    params = [k for k, _ in resumed.state.model.named_parameters()]
+    apart = torch.cat([(final[k] - got[k]).float().flatten()
+                       for k in params]).norm().item()
+    change = torch.cat([(final[k] - start[k]).float().flatten()
+                        for k in params]).norm().item()
+    loss_diff = abs(rhist["loss"]["train"][1] - hist["loss"]["train"][1])
+    rtol = _GRAPH_LOSS_RTOL[cfg.model.compute_dtype]
+    if not (loss_diff <= rtol * abs(hist["loss"]["train"][1])
+            and apart <= _GRAPH_PARAM_REL * change):
+        raise AssertionError(f"resumed run ended elsewhere: epoch-2 loss"
+                             f" {rhist['loss']['train'][1]} vs "
+                             f"{hist['loss']['train'][1]}, parameters "
+                             f"{apart:.3e} apart (changed {change:.3e})")
+    sd, cfg_json = load_exported_model(resumed.export_path)
+    model = SimCLR(resolve_model_config(cfg).model)
+    model.load_state_dict(sd)
+    if cfg_json["train"]["n_epoch"] != 2 or not all(
+            torch.equal(sd[k], got[k].cpu()) for k in got):
+        raise AssertionError("the export did not load back")
+    export = resumed.export_path
+    del resumed
     for (name, (wall_us, busy_us)), rec, (alloc, reserved) in zip(
             busy.items(), records, peaks):
         print(f"  {name}: {rec['epoch_seconds']:.3f} s, "
@@ -2077,7 +2221,8 @@ def pretrain_phase(torch, smi):
               f"{100 * busy_us / wall_us:.1f}% of {wall_us / 1e3:.1f} ms "
               f"(profiled), peak {alloc:.2f} GiB allocated, {reserved:.2f} "
               f"GiB reserved, on {smi}")
-    return {"summary": f"2 epochs of 6 steps (train losses "
+    return {"split": split, "export": export,
+            "summary": f"2 epochs of 6 steps (train losses "
                        f"{[round(v, 4) for v in hist['loss']['train']]}, "
                        f"valid {[round(v, 4) for v in hist['loss']['valid']]}"
                        f"); resumed from epoch 1: parameters bit-identical "
@@ -2085,6 +2230,195 @@ def pretrain_phase(torch, smi):
                        f"epoch 2), "
                        f"epoch-2 loss {rhist['loss']['train'][1]:.6f} vs "
                        f"{hist['loss']['train'][1]:.6f}; export loads back"}
+
+
+# The parity phase's bf16 tolerance, on the first images' features of the
+# export on the card (cuDNN) and on the CPU, in relative norm: bf16
+# convolutions and BN passes round at other points on the two.
+_FEATURE_REL = 1e-2
+
+
+@phase("lin_eval")
+def lin_eval_phase(torch, smi, pre):
+    """``linear_evaluation`` of the pretrain phase's export at full width
+    on its 3,277 / 819 split: features at batch 512, the float32 L-BFGS
+    head (``n_epoch_lin_eval = 2``: 40 iterations at most), test top-1.
+    The launch counts are set to 0 before and read after: the default
+    path runs no kernel. The L-BFGS trace must fall from ln 10, all
+    finite; the first 16 images' features on the card must equal the
+    CPU's from the same export. Then extraction and the fit again, timed
+    apart (images/s, ms an L-BFGS iteration)."""
+    from simclr_tpu_torch.config import Config
+    from simclr_tpu_torch.data.pipeline import DeviceDataset
+    from simclr_tpu_torch.models.simclr import SimCLR
+    from simclr_tpu_torch.train.lin_eval import (
+        extract_features, linear_evaluation, train_linear_classifier)
+    from simclr_tpu_torch.train.pretrain import resolve_model_config
+    from simclr_tpu_torch.utils.checkpoint import load_pretrained
+
+    base = Config()
+    cfg = base.replace(train=dataclasses.replace(base.train,
+                                                 n_epoch_lin_eval=2))
+    train, test = pre["split"].train, pre["split"].val
+    sd, _ = load_pretrained(pre["export"])
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = SimCLR(resolve_model_config(cfg).model)
+        models[dev].load_state_dict(sd)
+        models[dev] = models[dev].to(dev, memory_format=torch.channels_last)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    reset_counts()
+    start = time.perf_counter()
+    loss, acc = linear_evaluation(models["cuda"], train, test, cfg,
+                                  log=lines.append)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - start
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if any(launches.values()):
+        raise AssertionError(f"the default downstream path launched "
+                             f"{launches}")
+    first, final, iters = (float(v) for v in re.match(
+        r"lin-eval L-BFGS: loss (\S+) -> (\S+) \((\d+) iterations\)",
+        lines[0]).groups())
+    if not (abs(first - math.log(10)) < 1e-3 and final < first
+            and 0 < iters <= 40 and math.isfinite(loss)
+            and math.isfinite(acc)):
+        raise AssertionError(f"linear evaluation: {lines}")
+    head = {}
+    for dev, model in models.items():
+        images = train.images[:16].to(dev)
+        head[dev] = extract_features(
+            model, DeviceDataset(images, train.labels[:16].to(dev)),
+            cfg)[0].cpu()
+    rel = _rel_norm(head["cuda"], head["cpu"])
+    if not rel <= _FEATURE_REL:
+        raise AssertionError(f"features on the card {rel:.2e} off the CPU's")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    feats, targets = extract_features(models["cuda"], train, cfg)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - start
+    fit_lines = []
+    start = time.perf_counter()
+    _, trace = train_linear_classifier(
+        feats, targets, cfg.optim.reg_wt_lin_eval,
+        cfg.train.n_epoch_lin_eval, cfg.optim.lbfgs_max_iter,
+        cfg.dataset.num_classes, log=fit_lines.append)
+    fit_s = time.perf_counter() - start
+    fit_iters = int(re.search(r"\((\d+) iterations", fit_lines[0]).group(1))
+    print(f"  lin_eval: extraction {train.n / extract_s:.1f} images/s "
+          f"({train.n} images at batch 512, {extract_s:.3f} s); L-BFGS "
+          f"{1e3 * fit_s / fit_iters:.3f} ms an iteration ({fit_iters} "
+          f"iterations on {tuple(feats.shape)} float32 features, "
+          f"{fit_s:.3f} s); linear_evaluation {total_s:.3f} s; top-1 "
+          f"{acc:.2f}%; peak {peak:.2f} GiB allocated; on {smi}")
+    del models, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"summary": f"export of the pretrain phase, {train.n} / {test.n}"
+                       f" images: L-BFGS loss {first:.4f} -> {final:.4f} in "
+                       f"{int(iters)} iterations (trace "
+                       f"{[round(float(v), 4) for v in trace]}), test"
+                       f" loss {loss:.4f}, top-1 {acc:.2f}%; no kernel "
+                       f"launched; first 16 images' features {rel:.2e} off "
+                       f"the CPU's in relative norm (tol {_FEATURE_REL})"}
+
+
+@phase("ssl")
+def ssl_phase(torch, smi, pre):
+    """``train_ssl`` from the pretrain phase's export at full width,
+    ``micro_batch_size`` 64 and ``ssl_label_size`` 0.1 (327 weighted draws
+    of the 3,277 images: 5 replayed steps an epoch after the first
+    epoch's warm-up steps and capture), 2 epochs, tested on the 819. The
+    launch counts are set to 0 before and read after: the default path
+    runs no kernel. ``init_finetune`` must graft the export's ``f`` and
+    ``g``; after training ``f`` must have moved and ``g`` not; the history
+    must be finite. Then two more steps replayed under the profiler on
+    the fine-tuned model: the device's busy share."""
+    from simclr_tpu_torch.config import Config
+    from simclr_tpu_torch.data.pipeline import (
+        class_weights, weighted_sample_indices)
+    from simclr_tpu_torch.train.ssl import (
+        SupervisedEngine, init_finetune, train_ssl)
+    from simclr_tpu_torch.utils.checkpoint import load_pretrained
+
+    cfg = Config()
+    tcfg = cfg.train
+    train, test = pre["split"].train, pre["split"].val
+    sd, _ = load_pretrained(pre["export"])
+    grafted, _, _ = init_finetune(cfg, tcfg.seed, pre["export"],
+                                  device="cuda")
+    got = grafted.state_dict()
+    if not all(torch.equal(got[k].cpu(), v) for k, v in sd.items()):
+        raise AssertionError("init_finetune did not graft the export")
+    del grafted, got
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    reset_counts()
+    result = train_ssl(cfg, train, test_ds=test,
+                       pretrained_path=pre["export"], n_epochs=2,
+                       log=lines.append)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.cuda.max_memory_reserved() / 2 ** 30)
+    if any(launches.values()):
+        raise AssertionError(f"the default downstream path launched "
+                             f"{launches}")
+    hist = result.history.to_dict()
+    values = [v for d in hist.values() for v in d["train"]]
+    steps = max(int(tcfg.ssl_label_size * train.n),
+                tcfg.micro_batch_size) // tcfg.micro_batch_size
+    if (len(hist["loss"]["train"]) != 2 or result.state.step != 2 * steps
+            or not all(math.isfinite(v) for v in values)
+            or not math.isfinite(result.test_acc)):
+        raise AssertionError(f"fine-tune history {hist}, step "
+                             f"{result.state.step}, test {result.test_acc}")
+    model = result.state.model
+    now = {k: v.cpu() for k, v in model.state_dict().items()}
+    g_same = all(torch.equal(now[k], v) for k, v in sd.items()
+                 if k.startswith("g."))
+    f_moved = _rel_norm(
+        torch.cat([now[k].flatten() for k in sd if k.startswith("f.")]),
+        torch.cat([v.flatten() for k, v in sd.items()
+                   if k.startswith("f.")]))
+    if not g_same or not f_moved > 0:
+        raise AssertionError(f"g unchanged {g_same}, f moved {f_moved}")
+    # Two replayed steps on a new engine (its warm-up and capture first).
+    engine = SupervisedEngine(model, result.state.optimizer, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    weights = torch.from_numpy(class_weights(train.labels.cpu().numpy()))
+    idx = weighted_sample_indices(gen, weights, 4 * tcfg.micro_batch_size,
+                                  tcfg.micro_batch_size)
+    state, _ = engine.train_epoch(result.state, train.images, train.labels,
+                                  idx[:2], gen)
+    _, wall_ms, by_name = _profiled(torch, lambda: engine.train_epoch(
+        state, train.images, train.labels, idx[2:], gen))
+    busy = sum(by_name.values())
+    secs, test_acc = result.epoch_seconds, result.test_acc
+    print(f"  ssl: epoch 1 (2 eager steps, the capture, {steps - 2} "
+          f"replays) {secs[0]:.3f} s, epoch 2 ({steps} replays) "
+          f"{secs[1]:.3f} s, {steps / secs[1]:.3f} steps/s; a replayed "
+          f"step {wall_ms / 2:.2f} ms wall (profiled), device busy "
+          f"{busy / 2:.2f} ms ({100 * busy / wall_ms:.1f}%); peak "
+          f"{peak[0]:.2f} GiB allocated, {peak[1]:.2f} GiB reserved; test "
+          f"top-1 {test_acc:.2f}%; on {smi}")
+    print("  ssl: train_ssl's log: " + " / ".join(lines))
+    del engine, result, model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"summary": f"2 epochs of {steps} steps at batch "
+                       f"{tcfg.micro_batch_size} from the export (f and g "
+                       f"grafted): train losses "
+                       f"{[round(v, 4) for v in hist['loss']['train']]}, "
+                       f"accuracies "
+                       f"{[round(v, 2) for v in hist['accuracy']['train']]}"
+                       f", test top-1 {test_acc:.2f}%; no kernel launched; g "
+                       f"unchanged, f moved {f_moved:.2e} in relative norm"}
 
 
 def main() -> int:
@@ -2143,7 +2477,13 @@ def main() -> int:
     _release(torch, fsl)
     parity_phase(torch)
     graph_phase(torch)
-    pretrain_phase(torch, info["smi"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    try:
+        pre = pretrain_phase(torch, info["smi"], tmp)
+        lin_eval_phase(torch, info["smi"], pre)
+        ssl_phase(torch, info["smi"], pre)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     src = "simclr_tpu_torch/csrc/"
     b3_src = "simclr_tpu/ops/pallas/bn_relu.py:"

@@ -6,8 +6,8 @@ an index matrix, and a batch is a row gather from it. ``make_split``
 decides which samples live where for each training mode, with the JAX
 package's indices; augmentation runs inside the engine's step.
 
-``weighted_sample_indices``, ``infinite_stream`` and ``host_stream`` come
-with the trainers that use them (ROADMAP Queue A items 5, 8 and 10).
+``infinite_stream`` and ``host_stream`` come with the trainers that use
+them (ROADMAP Queue A items 8 and 10).
 """
 
 from __future__ import annotations
@@ -78,6 +78,19 @@ def epoch_permutation(generator: torch.Generator, n: int, batch_size: int,
         perm = torch.cat([perm, perm[:pad]])
         steps += 1
     return perm[: steps * batch_size].reshape(steps, batch_size)
+
+
+def weighted_sample_indices(generator: torch.Generator,
+                            weights: torch.Tensor, num_samples: int,
+                            batch_size: int) -> torch.Tensor:
+    """Weighted-with-replacement epoch indices shaped (steps, batch_size)
+    on the generator's device, the remainder dropped (reference:
+    data.py:383-392, WeightedRandomSampler semantics): each index is drawn
+    with probability proportional to its weight."""
+    idx = torch.multinomial(weights.to(generator.device), num_samples,
+                            replacement=True, generator=generator)
+    steps = num_samples // batch_size
+    return idx[: steps * batch_size].reshape(steps, batch_size)
 
 
 def take_batch(ds: DeviceDataset, idx: torch.Tensor

@@ -124,6 +124,23 @@ class ProjectionHead(nn.Module):
         return x.to(torch.float32)
 
 
+def _make_head(cfg: ModelConfig, in_features: int,
+               generator: Optional[torch.Generator]) -> ProjectionHead:
+    return ProjectionHead(
+        in_features,
+        feature_dim=cfg.feature_dim,
+        output_dim=cfg.compressed_dim,
+        num_layers=cfg.num_proj_layers,
+        dtype=dtype_of(cfg.compute_dtype),
+        bn_dtype=dtype_of(cfg.bn_dtype),
+        bn_stats_fraction=cfg.bn_stats_fraction,
+        bn_grad_mode=cfg.head_bn_grad_mode or cfg.bn_grad_mode,
+        bn_st_surrogate=cfg.bn_st_surrogate,
+        bn_fused_vjp=bool(cfg.bn_fused_vjp),
+        generator=generator,
+    )
+
+
 class SimCLR(nn.Module):
     """Encoder + projection head; ``forward(x) -> (h, z)`` for NCHW images
     (reference: models/simclr.py:43-46)."""
@@ -133,20 +150,36 @@ class SimCLR(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.f = _make_encoder(cfg, generator)
-        self.g = ProjectionHead(
-            self.f.out_features,
-            feature_dim=cfg.feature_dim,
-            output_dim=cfg.compressed_dim,
-            num_layers=cfg.num_proj_layers,
-            dtype=dtype_of(cfg.compute_dtype),
-            bn_dtype=dtype_of(cfg.bn_dtype),
-            bn_stats_fraction=cfg.bn_stats_fraction,
-            bn_grad_mode=cfg.head_bn_grad_mode or cfg.bn_grad_mode,
-            bn_st_surrogate=cfg.bn_st_surrogate,
-            bn_fused_vjp=bool(cfg.bn_fused_vjp),
-            generator=generator,
-        )
+        self.g = _make_head(cfg, self.f.out_features, generator)
 
     def forward(self, x: torch.Tensor):
         h = self.f(x)
         return h, self.g(h)
+
+
+class SimCLRFineTune(nn.Module):
+    """Encoder + float32 linear supervised head; ``forward(x) -> logits``
+    for NCHW images (reference: models/ssl.py:6-35).
+
+    The projection head ``g`` is built so that the parameter tree is
+    SimCLR's and a pretrained export loads whole, but the forward never
+    runs it, as the reference's does not (models/ssl.py:32-35). The JAX
+    module calls ``g`` on ``stop_gradient(h)`` with ``train=False`` only
+    to create its parameters; XLA drops the unused result, so neither its
+    parameters nor its running statistics change in training there, nor
+    here, where ``g`` gets no gradient and SGD leaves it alone. From one
+    seed, ``f`` and ``g`` start as ``SimCLR``'s do."""
+
+    def __init__(self, cfg: ModelConfig = ModelConfig(),
+                 num_classes: int = 10,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.f = _make_encoder(cfg, generator)
+        self.g = _make_head(cfg, self.f.out_features, generator)
+        self.supervised_head = Linear(self.f.out_features, num_classes,
+                                      dtype=torch.float32,
+                                      generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.supervised_head(self.f(x))

@@ -1,9 +1,11 @@
 """On-device SimCLR training augmentation (NHWC float32 images).
 
-Counterpart of the training path of ``simclr_tpu/ops/augment.py``: random
-resized crop and flip as two batched matmuls against tent-weight matrices,
-colour jitter in a per-image random order, random grayscale, normalisation
-and a per-image-sigma Gaussian blur.
+Counterpart of the training, test and fine-tune paths of
+``simclr_tpu/ops/augment.py``: random resized crop and flip as two batched
+matmuls against tent-weight matrices, colour jitter in a per-image random
+order, random grayscale, normalisation and a per-image-sigma Gaussian
+blur; the test view (centre crop, normalise) and the fine-tune view (crop,
+flip, normalise).
 
 Every random step is split in two: a ``sample_*`` function draws the
 parameters from an explicit ``torch.Generator``, and an apply function takes
@@ -339,11 +341,20 @@ def gaussian_blur(images: torch.Tensor, sigma: torch.Tensor,
 # Normalisation and the composed training view.
 # ---------------------------------------------------------------------------
 
+@functools.cache
+def _channel_constants(values: Tuple[float, ...],
+                       device: torch.device) -> torch.Tensor:
+    """``values`` as float32 on ``device``, copied there once: a
+    host-to-device copy in every step could not be captured in a CUDA
+    graph (the fine-tune step normalises inside its capture)."""
+    return torch.tensor(values, dtype=torch.float32).to(device)
+
+
 def normalize(images: torch.Tensor, mean: Sequence[float],
               std: Sequence[float]) -> torch.Tensor:
-    m = torch.tensor(mean, dtype=torch.float32, device=images.device)
-    s = torch.tensor(std, dtype=torch.float32, device=images.device)
-    return (images - m) / s
+    dev = images.device
+    return ((images - _channel_constants(tuple(mean), dev))
+            / _channel_constants(tuple(std), dev))
 
 
 def to_float(images: torch.Tensor) -> torch.Tensor:
@@ -423,3 +434,66 @@ def augment_train_pair(
     """Two independent views per image (reference: data.py:44-47)."""
     return (augment_train(generator, images, aug, ds),
             augment_train(generator, images, aug, ds))
+
+
+# ---------------------------------------------------------------------------
+# Test and fine-tune views.
+# ---------------------------------------------------------------------------
+
+def center_crop(images: torch.Tensor, out_size: Tuple[int, int]
+                ) -> torch.Tensor:
+    """Static centre crop of NHWC images (reference: data.py:187-188,
+    CenterCrop in the test transform)."""
+    h, w = images.shape[1], images.shape[2]
+    oh, ow = out_size
+    top, left = (h - oh) // 2, (w - ow) // 2
+    return images[:, top:top + oh, left:left + ow, :]
+
+
+def augment_test(
+    images: torch.Tensor,
+    ds: DatasetConfig,
+    crop_dim: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """ToTensor [+ CenterCrop] + Normalize (reference: data.py:172-192)."""
+    x = to_float(images)
+    if crop_dim is not None:
+        x = center_crop(x, crop_dim)
+    return normalize(x, ds.mean, ds.std)
+
+
+@dataclasses.dataclass
+class CropParams:
+    """The random draws of one fine-tune view of N images."""
+
+    boxes: Boxes            # (top, left, height, width), each (N,)
+    flip: torch.Tensor      # (N,) bool
+
+
+def sample_fine_tune_params(generator: torch.Generator, n: int, in_h: int,
+                            in_w: int, aug: AugmentConfig) -> CropParams:
+    boxes = sample_crop_boxes(generator, n, in_h, in_w, aug.crop_scale,
+                              aug.crop_ratio)
+    return CropParams(boxes, sample_flips(generator, n, aug.flip_prob))
+
+
+def augment_fine_tune_apply(images: torch.Tensor, params: CropParams,
+                            ds: DatasetConfig) -> torch.Tensor:
+    """Crop + flip + normalise of NHWC uint8 or float images with the given
+    draws; no colour distortion. Returns (N, S, S, 3) float32 at the
+    dataset's image size S."""
+    x = crop_resize_flip(to_float(images), params.boxes,
+                         (ds.img_size, ds.img_size), params.flip)
+    return normalize(x, ds.mean, ds.std)
+
+
+def augment_fine_tune(
+    generator: torch.Generator,
+    images: torch.Tensor,
+    aug: AugmentConfig,
+    ds: DatasetConfig,
+) -> torch.Tensor:
+    """Crop + flip + normalise only (reference: data.py:150-169)."""
+    params = sample_fine_tune_params(generator, images.shape[0],
+                                     images.shape[1], images.shape[2], aug)
+    return augment_fine_tune_apply(images, params, ds)

@@ -5,24 +5,12 @@ batch from the device-resident dataset, augment two views (kernel B2 for
 the colour chain), one forward over all 2N images in ``channels_last``,
 NT-Xent (kernel B1 and its backward), backward, and torch-semantics Adam.
 
-The JAX engine runs an epoch as one ``lax.scan`` dispatch. Here, on a CUDA
-device, ``train_epoch`` captures the step once as a CUDA graph and replays
-it for every row of the index matrix:
-
-  * the index row reaches the graph through a static buffer, and each
-    replay's loss and accuracy are copied into the epoch's output rows,
-    so the host never waits for the device inside the epoch;
-  * the augmentation draws come from a CUDA generator registered with the
-    graph: each replay advances it as the eager step would, so a replayed
-    epoch draws what an eager one draws;
-  * Adam is ``capturable`` (``init_simclr`` on a CUDA device);
-  * the first rows of the first epoch (``WARMUP_STEPS``) run eagerly on a
-    side stream before the capture, as PyTorch asks: they build the kernel
-    library, the index caches, cuDNN's plans and Adam's state. They are
-    real steps of the epoch, which takes each row exactly once.
-
-A capture that fails raises; on a CUDA device the epoch never falls back to
-the eager loop. On the CPU ``train_epoch`` is the eager loop.
+The JAX engine runs an epoch as one ``lax.scan`` dispatch. Here, on a
+CUDA device, ``train_epoch`` captures the step once as a CUDA graph and
+replays it for every row of the index matrix (``train/common.py:
+graphed_epoch``, which the fine-tune engine shares); Adam is
+``capturable`` (``init_simclr`` on a CUDA device). On the CPU
+``train_epoch`` is the eager loop.
 """
 
 from __future__ import annotations
@@ -30,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +32,8 @@ from simclr_tpu_torch.ops.augment import (
 from simclr_tpu_torch.ops.kernels.ntxent import nt_xent_loss_fused, supports
 from simclr_tpu_torch.ops.losses import modified_contrastive_loss
 from simclr_tpu_torch.train.common import (
-    History, TrainState, adam_torch, with_grad_accumulation)
+    CapturedStep, History, TrainState, adam_torch, graphed_epoch,
+    with_grad_accumulation)
 from simclr_tpu_torch.utils import checkpoint as ckpt_lib
 from simclr_tpu_torch.utils.device import resolve_device
 from simclr_tpu_torch.utils.profiling import MetricsLogger, annotate, trace
@@ -54,9 +43,6 @@ LossFn = Callable[[torch.Tensor, torch.Tensor],
                   Tuple[torch.Tensor, torch.Tensor]]
 PairParams = Tuple[ViewParams, ViewParams]
 
-# Eager steps before the capture (PyTorch's recipe warms up on a side
-# stream); the first epoch's first rows.
-WARMUP_STEPS = 2
 _UNPORTED_MESH = ("data parallelism (mesh, engine='explicit') is not "
                   "ported yet: ROADMAP Queue A item 11")
 
@@ -119,19 +105,6 @@ def _forward_pair(model: SimCLR, v1: torch.Tensor, v2: torch.Tensor,
         return model(_nchw(v1))[1], model(_nchw(v2))[1]
     _, z = model(_nchw(torch.cat([v1, v2], dim=0)))
     return z.chunk(2, dim=0)
-
-
-@dataclasses.dataclass
-class CapturedStep:
-    """One train step captured as a CUDA graph, with the static tensors it
-    reads and writes."""
-
-    graph: Any                   # torch.cuda.CUDAGraph
-    images: torch.Tensor         # the dataset it gathers from (kept alive)
-    generator: torch.Generator   # registered with the graph
-    idx: torch.Tensor            # the index row of the next replay
-    metrics: torch.Tensor        # (2,): loss / accum_steps, accuracy %
-    draws: PairParams            # the view parameters of the last replay
 
 
 class PretrainEngine:
@@ -215,47 +188,15 @@ class PretrainEngine:
         return state, (torch.stack(losses), torch.stack(accs))
 
     def _graphed_epoch(self, state, images, idx_mat, generator):
-        if idx_mat.device != images.device or generator.device.type != "cuda":
-            raise ValueError("a CUDA epoch takes its index matrix on the "
-                             "dataset's device and a CUDA generator")
-        steps = idx_mat.shape[0]
-        out = torch.empty((2, steps), device=images.device)
-        key = (images.data_ptr(), tuple(images.shape), images.dtype,
-               tuple(idx_mat.shape[1:]), idx_mat.dtype)
-        rec, first = self.graphs.get(key), 0
-        if rec is None:
-            first = min(WARMUP_STEPS, steps)
-            main = torch.cuda.current_stream(images.device)
-            side = torch.cuda.Stream(images.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                for i in range(first):
-                    state, metrics = self.train_step(state, images,
-                                                     idx_mat[i], generator)
-                    out[:, i] = torch.stack(metrics)
-            main.wait_stream(side)
-            rec = self.graphs[key] = self._capture(images, idx_mat,
-                                                   generator)
-        elif rec.generator is not generator:
-            raise ValueError("the captured step draws from the generator "
-                             "it was captured with")
-        for i in range(first, steps):
-            rec.idx.copy_(idx_mat[i])
-            rec.graph.replay()
-            out[:, i].copy_(rec.metrics)
-        state.step += steps - first
-        return state, (out[0], out[1])
-
-    def _capture(self, images: torch.Tensor, idx_mat: torch.Tensor,
-                 generator: torch.Generator) -> CapturedStep:
-        idx = torch.zeros_like(idx_mat[0])
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(generator)
-        with torch.cuda.graph(graph):
+        def body(idx):
             batch = images.index_select(0, idx)
             draws = self.sample_pair_params(generator, *batch.shape[:3])
-            metrics = torch.stack(self._update(batch, draws))
-        return CapturedStep(graph, images, generator, idx, metrics, draws)
+            return self._update(batch, draws), draws
+
+        return graphed_epoch(
+            self.graphs, state, (images,), idx_mat, generator,
+            lambda st, row: self.train_step(st, images, row, generator),
+            body)
 
     @torch.no_grad()
     def eval_step_on_views(self, v1: torch.Tensor, v2: torch.Tensor

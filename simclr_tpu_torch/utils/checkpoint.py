@@ -13,8 +13,10 @@ Counterpart of ``simclr_tpu/utils/checkpoint.py``, in torch-native files:
       the CPU in one file, with the config JSON in ``path + ".json"``.
 
 Both are read with ``torch.load(weights_only=True)``: tensors, numbers,
-strings and containers only. The JAX package's msgpack exports are not
-read here (ROADMAP Queue A item 4).
+strings and containers only. The JAX package's exports (flax msgpack,
+``.msgpack``) are read by ``load_jax_export`` through the port's own
+decoder (``utils/msgpack.py``); ``load_pretrained`` takes either kind,
+chosen by the file's suffix.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import torch
 import torch.nn as nn
 
 from simclr_tpu_torch.train.common import TrainState
+from simclr_tpu_torch.utils import msgpack
+from simclr_tpu_torch.utils.weights import simclr_from_jax
 
 _STATE = "state.pt"
 _META = "meta.json"
@@ -115,12 +119,40 @@ def export_model(path: str,
         f.write(config_json or "{}")
 
 
+def _config_beside(path: str) -> Dict[str, Any]:
+    if not os.path.isfile(path + ".json"):
+        return {}
+    with open(path + ".json") as f:
+        return json.load(f)
+
+
 def load_exported_model(path: str
                         ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """Returns (state_dict, config_dict)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    cfg: Dict[str, Any] = {}
-    if os.path.isfile(path + ".json"):
-        with open(path + ".json") as f:
-            cfg = json.load(f)
-    return sd, cfg
+    return sd, _config_beside(path)
+
+
+def load_jax_export(path: str) -> Tuple[Dict[str, Any], Dict[str, Any],
+                                        Dict[str, Any]]:
+    """A JAX package export (``simclr_tpu/utils/checkpoint.py:
+    export_model``, flax msgpack): returns (params, batch_stats,
+    config_dict), the first two nested dicts of numpy arrays, as the JAX
+    ``load_exported_model`` returns them."""
+    with open(path, "rb") as f:
+        payload = msgpack.unpackb(f.read())
+    if not isinstance(payload, dict) or not {"params",
+                                             "batch_stats"} <= set(payload):
+        raise ValueError(f"{path}: not a JAX model export (no 'params' and "
+                         "'batch_stats')")
+    return payload["params"], payload["batch_stats"], _config_beside(path)
+
+
+def load_pretrained(path: str
+                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """(state_dict, config_dict) of either export: a JAX ``.msgpack`` one
+    through ``simclr_from_jax``, anything else as the port's ``.pt``."""
+    if path.endswith(".msgpack"):
+        params, stats, cfg = load_jax_export(path)
+        return simclr_from_jax(params, stats), cfg
+    return load_exported_model(path)

@@ -1,6 +1,7 @@
 """The port never imports JAX or the JAX package: every module of
 ``simclr_tpu_torch`` imports in a fresh interpreter in which ``jax``,
-``flax``, ``optax``, ``orbax`` and ``simclr_tpu`` cannot be imported."""
+``flax``, ``optax``, ``orbax``, ``msgpack`` and ``simclr_tpu`` cannot be
+imported."""
 
 import pkgutil
 import subprocess
@@ -9,7 +10,7 @@ from pathlib import Path
 
 import simclr_tpu_torch
 
-BLOCKED = ("jax", "flax", "optax", "orbax", "simclr_tpu")
+BLOCKED = ("jax", "flax", "optax", "orbax", "msgpack", "simclr_tpu")
 
 _SCRIPT = """
 import importlib, sys
@@ -41,7 +42,9 @@ def test_every_port_module_imports_without_jax():
     assert "simclr_tpu_torch.ops.kernels.bottleneck" in modules
     for name in ("utils.checkpoint", "utils.profiling",
                  "utils.visualizations", "scripts.pretrain",
-                 "train.pretrain", "data.pipeline"):
+                 "train.pretrain", "data.pipeline", "utils.msgpack",
+                 "train.lin_eval", "train.ssl", "scripts.lin_eval",
+                 "scripts.train_ssl"):
         assert f"simclr_tpu_torch.{name}" in modules
     root = Path(simclr_tpu_torch.__file__).resolve().parents[1]
     result = subprocess.run(
