@@ -88,7 +88,12 @@ Phases, each printed as one line with its result and wall time:
    fine-tune step (``train/ssl.py``, batch 64) the same way, against
    eager steps from the same weights, SGD state, generator and rows, on
    the default and bn_relu_fused configurations, and one more replay of
-   each under the profiler, where B3's launches show by name.
+   each under the profiler, where B3's launches show by name. Then the
+   supervised baseline's half-step (width-16 ``SupervisedResNet``, batch
+   64, capturable Adam; B2 once a half-step) and the MINE step (``repr``
+   mode, batch 64, over a width-16 SimCLR with MC dropout; B2 three times
+   a step) the same way: their view draws and the six dropout masks bit
+   for bit, the masks different from one replay to the next.
 15. pretrain: ``pretrain()`` at full width on the default config, 4,096
    synthetic images (80/20 split), 2 epochs with a checkpoint after
    each, under torch.profiler (each epoch's seconds, steps/s, device
@@ -105,6 +110,18 @@ Phases, each printed as one line with its result and wall time:
    seconds an epoch, steps/s, the busy share of two replayed steps under
    the profiler, peak memory. Neither downstream path launches a kernel
    of the port (their counts are read and must be 0).
+18. supervised: ``train_supervised`` at full width (batch 64, two
+   half-steps a batch: 102 an epoch), 2 epochs, validated and tested on
+   the 819: B2 once in each eager half-step and in the capture and no
+   other kernel, a finite history, the best epoch's parameters restored
+   bit for bit; seconds an epoch, half-steps/s, the busy share of two
+   replayed half-steps under the profiler, peak memory.
+19. mine: ``train_mine_from_export`` on the export at batch 256 and
+   hidden width 512: ``repr`` mode with ``encoder='dropout'`` for 200
+   steps (B2 three times a step), then ``orig`` mode without dropout for
+   50 (twice a step; MineNet 5,120 wide), counted in the EMA's first
+   sample, the eager steps and the capture; finite traces; ms a step,
+   the busy share of two replayed steps, peak memory.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -1661,6 +1678,8 @@ _CATEGORIES = (  # first match wins, on the lower-cased kernel name
     ("matmul", ("gemm", "matmul")),
     ("optimizer", ("adam", "multi_tensor")),
     ("reduction", ("reduce",)),
+    # torch.rand & co. (augmentation draws, MC-dropout masks).
+    ("random draws", ("distribution",)),
     ("elementwise", ("elementwise", "vectorized", "unrolled", "index",
                      "cat", "copy", "fill")),
 )
@@ -1717,16 +1736,10 @@ def _profile(torch, run):
             raise AssertionError(f"{c}: {count} kernels named "
                                  f"{_KERNEL_NAME[c]} in {steps} replayed "
                                  f"steps; launches by name {named}")
-    cats = {}
-    for name, ms in by_name.items():
-        low = name.lower()
-        cat = next((c for c, keys in _CATEGORIES
-                    if any(k in low for k in keys)), "other")
-        cats[cat] = cats.get(cat, 0.0) + ms
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"  kernel {ms / steps:8.3f} ms/step  {name[:100]}")
     cat_text = ", ".join(f"{c} {ms / steps:.2f}" for c, ms in
-                         sorted(cats.items(), key=lambda kv: -kv[1]))
+                         _by_category(by_name))
     return {"summary": f"{steps} replayed steps, kernels by name a step "
                        f"{ {c: n // steps for c, n in named.items() if n} }, "
                        f"wall {wall_ms / steps:.2f} ms/step,"
@@ -1853,6 +1866,12 @@ _GRAPH_PARAM_REL = 0.25
 # leaves a factor 5; rtol 1e-6 covers the float32 rounding of the larger
 # parameters.
 _ADAM_RTOL, _ADAM_ATOL = 1e-6, 1e-7
+# The MINE step's loss and EMA, replayed against eager: the frozen bf16
+# model's features are those of the same kernels on the same views and
+# masks, and MineNet runs in float32 (TF32 off); its loss is a difference
+# of two terms of order 1 that can nearly cancel, so it is held relative
+# to max(|loss|, 1e-3).
+_MINE_LOSS_RTOL = 1e-3
 
 
 def _adam_check(torch):
@@ -1879,36 +1898,50 @@ def _adam_check(torch):
     return worst
 
 
+def _draw_tensors(d):
+    """A view's draws (``ViewParams``, ``CropParams``, ``SupervisedParams``)
+    as a flat list of tensors, boxes unpacked."""
+    out = []
+    for f in dataclasses.fields(d):
+        v = getattr(d, f.name)
+        out.extend(v if isinstance(v, tuple) else [v])
+    return out
+
+
 def _draws_equal(torch, a, b):
-    ta = [*a.boxes, a.flip, a.factors, a.schedule, a.sigma]
-    tb = [*b.boxes, b.flip, b.factors, b.schedule, b.sigma]
-    return all(torch.equal(x, y) for x, y in zip(ta, tb))
+    return all(torch.equal(x, y) for x, y in zip(_draw_tensors(a),
+                                                 _draw_tensors(b)))
 
 
 def _clone_draws(torch, d):
-    return dataclasses.replace(
-        d, boxes=tuple(b.clone() for b in d.boxes), flip=d.flip.clone(),
-        factors=d.factors.clone(), schedule=d.schedule.clone(),
-        sigma=d.sigma.clone())
+    return dataclasses.replace(d, **{
+        f.name: (tuple(t.clone() for t in v) if isinstance(v, tuple)
+                 else v.clone())
+        for f in dataclasses.fields(d) for v in [getattr(d, f.name)]})
 
 
-def _crops_equal(torch, a, b):
-    return all(torch.equal(x, y) for x, y in
-               zip([*a.boxes, a.flip], [*b.boxes, b.flip]))
+def _rel_change(torch, model, twin, p0):
+    """The distance between two models' parameters over the twin's change
+    from ``p0``, in norm."""
+    change = torch.cat([(p - q).flatten() for p, q in
+                        zip(twin.parameters(), p0)]).norm()
+    diff = torch.cat([(p - q).flatten() for p, q in
+                      zip(model.parameters(), twin.parameters())]).norm()
+    return (diff / change).item()
 
 
-def _clone_crops(d):
-    return dataclasses.replace(d, boxes=tuple(b.clone() for b in d.boxes),
-                               flip=d.flip.clone())
-
-
-def _finetune_graph_check(torch, name, over, kernels):
-    """The fine-tune step (``train/ssl.py``) of a width-16 model at batch
-    64 on one parity configuration: WARMUP_STEPS eager steps and the
-    capture, then N replays (each its own one-row epoch, under
+def _classifier_graph_check(torch, name, over, kernels, init=None,
+                            augment="fine_tune"):
+    """A ``train/ssl.py:SupervisedEngine`` step of a width-16 classifier
+    at batch 64: the fine-tune step (``init_finetune``, SGD) on one parity
+    configuration, or the supervised baseline's half-step
+    (``train/supervised.py:init_supervised``, capturable Adam,
+    ``augment='supervised'``). WARMUP_STEPS eager steps and the capture,
+    then N replays (each its own one-row epoch, under
     ``set_sync_debug_mode("error")``) against N eager steps of a twin
-    loaded with the first's weights, SGD state and generator state after
-    the capture, on the same rows; then one more replay under the
+    loaded with the first's weights, optimizer state and generator state
+    after the capture, on the same rows: the view draws bit for bit and
+    different from one replay to the next; then one more replay under the
     profiler, where each wrapper's kernel must show its launches a step
     by name."""
     import copy
@@ -1918,6 +1951,7 @@ def _finetune_graph_check(torch, name, over, kernels):
     from simclr_tpu_torch.train.common import WARMUP_STEPS
     from simclr_tpu_torch.train.ssl import SupervisedEngine, init_finetune
 
+    init = init or init_finetune
     n_steps, batch, warm = 3, 64, WARMUP_STEPS
     images, labels = synthetic_dataset(batch * (warm + n_steps + 1), 32,
                                        seed=6)
@@ -1929,21 +1963,21 @@ def _finetune_graph_check(torch, name, over, kernels):
                                                 micro_batch_size=batch))
     gen = torch.Generator(device="cuda").manual_seed(7)
     idx = epoch_permutation(gen, images.shape[0], batch)
-    model, state, opt = init_finetune(cfg, seed=0, device="cuda")
-    engine = SupervisedEngine(model, opt, cfg)
+    model, state, opt = init(cfg, seed=0, device="cuda")
+    engine = SupervisedEngine(model, opt, cfg, augment)
     reset_counts()
     state, _ = engine.train_epoch(state, images, labels, idx[:warm], gen)
     counts = read_counts()
     if not all(counts[k] for k in kernels) or any(
             counts[k] for k in counts if k not in kernels):
-        raise AssertionError(f"fine-tune {name}: launches {counts}")
+        raise AssertionError(f"{name}: launches {counts}")
     (rec,) = engine.graphs.values()
-    twin, twin_state, twin_opt = init_finetune(cfg, seed=0, device="cuda")
+    twin, twin_state, twin_opt = init(cfg, seed=0, device="cuda")
     twin.load_state_dict(model.state_dict())
     twin_opt.load_state_dict(copy.deepcopy(opt.state_dict()))
     twin_gen = torch.Generator(device="cuda")
     twin_gen.set_state(gen.get_state())
-    twin_engine = SupervisedEngine(twin, twin_opt, cfg)
+    twin_engine = SupervisedEngine(twin, twin_opt, cfg, augment)
     p0 = [p.detach().clone() for p in model.parameters()]
     eager, replayed = [], []
     for i in range(n_steps):
@@ -1951,7 +1985,7 @@ def _finetune_graph_check(torch, name, over, kernels):
         draws = twin_engine.sample_params(twin_gen, batch, 32, 32)
         twin_state, (loss, _) = twin_engine.train_step_on_params(
             twin_state, images.index_select(0, rows),
-            labels.index_select(0, rows), draws)
+            labels.index_select(0, rows), draws, twin_gen)
         eager.append((draws, loss))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1959,32 +1993,28 @@ def _finetune_graph_check(torch, name, over, kernels):
         for i in range(n_steps):
             state, (loss, _) = engine.train_epoch(
                 state, images, labels, idx[warm + i:warm + i + 1], gen)
-            replayed.append((_clone_crops(rec.draws), loss))
+            replayed.append((_clone_draws(torch, rec.draws), loss))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     if len(engine.graphs) != 1 or state.step != warm + n_steps:
-        raise AssertionError(f"fine-tune {name}: captured "
+        raise AssertionError(f"{name}: captured "
                              f"{len(engine.graphs)} times, step {state.step}")
     for i, ((de, _), (dr, _)) in enumerate(zip(eager, replayed)):
-        if not _crops_equal(torch, de, dr):
-            raise AssertionError(f"fine-tune {name}: replay {i} drew other "
-                                 "crops than the eager step")
+        if not _draws_equal(torch, de, dr):
+            raise AssertionError(f"{name}: replay {i} drew other views "
+                                 "than the eager step")
     for i in range(n_steps - 1):
-        if _crops_equal(torch, replayed[i][0], replayed[i + 1][0]):
-            raise AssertionError(f"fine-tune {name}: replays {i} and {i + 1}"
-                                 " drew the same crops")
+        if _draws_equal(torch, replayed[i][0], replayed[i + 1][0]):
+            raise AssertionError(f"{name}: replays {i} and {i + 1} drew the "
+                                 "same views")
     le = [l.item() for _, l in eager]
     lr_ = [l.item() for _, l in replayed]
     rtol = _GRAPH_LOSS_RTOL[cfg.model.compute_dtype]
     loss_diff = max(abs(a - b) / abs(b) for a, b in zip(lr_, le))
-    change = torch.cat([(p - q).flatten() for p, q in
-                        zip(twin.parameters(), p0)]).norm()
-    diff = torch.cat([(p - q).flatten() for p, q in
-                      zip(model.parameters(), twin.parameters())]).norm()
-    rel = (diff / change).item()
+    rel = _rel_change(torch, model, twin, p0)
     if not (loss_diff <= rtol and rel <= _GRAPH_PARAM_REL):
-        raise AssertionError(f"fine-tune {name}: replayed losses {lr_}, "
+        raise AssertionError(f"{name}: replayed losses {lr_}, "
                              f"eager {le}; parameter difference {rel:.2e} "
                              "of the change")
     per_step = {k: counts[k] // (warm + 1) for k in kernels}
@@ -1992,16 +2022,126 @@ def _finetune_graph_check(torch, name, over, kernels):
         state, images, labels, idx[warm + n_steps:], gen))
     named = _named_launches(prof)
     if any(named[k] != per_step.get(k, 0) for k in named):
-        raise AssertionError(f"fine-tune {name}: one replay launched "
+        raise AssertionError(f"{name}: one replay launched "
                              f"{named} by name, expected {per_step}")
     del engine, twin_engine, rec
     gc.collect()
-    return (f"fine-tune {name} (batch {batch}): crops identical, varying; "
+    return (f"{name} (batch {batch}): views identical, varying; "
             f"losses replayed {[round(v, 6) for v in lr_]} eager "
             f"{[round(v, 6) for v in le]} (max rel {loss_diff:.1e}, tol "
             f"{rtol}); parameters {rel:.1e} of the change (tol "
             f"{_GRAPH_PARAM_REL}); a replay's kernels by name "
             f"{ {k: n for k, n in named.items() if n} }")
+
+
+def _dropout_masks(torch, model):
+    from simclr_tpu_torch.models.resnet import MCDropout
+    return [m.mask.clone() for m in model.modules()
+            if isinstance(m, MCDropout)]
+
+
+def _mine_graph_check(torch):
+    """The MINE step (``train/mine.py``) at batch 64 in ``repr`` mode over
+    a width-16 frozen SimCLR with MC dropout (``encoder='dropout'``, six
+    sites): WARMUP_STEPS eager steps and the capture (B2 three times in
+    each, no other kernel), then N replays (each its own one-row chunk,
+    under ``set_sync_debug_mode("error")``) against N eager steps of a twin
+    loaded with the first's MineNet weights, Adam state, EMA and generator
+    state after the capture, on the same rows: the view draws and the six
+    dropout masks bit for bit, the masks different from one replay to the
+    next, the losses, the EMA and the MineNet parameters within the graph
+    tolerances."""
+    import copy
+    from simclr_tpu_torch.config import Config, ModelConfig
+    from simclr_tpu_torch.data.datasets import synthetic_dataset
+    from simclr_tpu_torch.models.resnet import MCDropout
+    from simclr_tpu_torch.models.simclr import SimCLR
+    from simclr_tpu_torch.train.common import WARMUP_STEPS
+    from simclr_tpu_torch.train.mine import build_mine, draw_rows
+
+    n_steps, batch, warm = 3, 64, WARMUP_STEPS
+    images = torch.from_numpy(synthetic_dataset(512, 32, seed=10)[0]).cuda()
+    cfg = Config(model=ModelConfig(feature_dim=512, stage_sizes=(1, 1, 1, 1),
+                                   width=16, encoder="dropout"))
+    sd = SimCLR(cfg.model, generator=torch.Generator().manual_seed(1)
+                ).state_dict()
+    engine, state = build_mine(cfg, sd, hidden_size=256, device="cuda")
+    twin, twin_state = build_mine(cfg, sd, hidden_size=256, device="cuda")
+    for e in (engine, twin):
+        for m in e.simclr.modules():
+            if isinstance(m, MCDropout):
+                m.record = True
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    engine.init_log_ma(images, draw_rows(gen, 512, 1, batch)[0], gen)
+    rows = draw_rows(gen, 512, warm + n_steps, batch)
+    reset_counts()
+    state, _ = engine.train_chunk(state, images, rows[:warm], gen)
+    counts = read_counts()
+    if counts["color"] != 3 * (warm + 1) or any(
+            v for k, v in counts.items() if k != "color"):
+        raise AssertionError(f"MINE step: launches {counts}, expected "
+                             f"color {3 * (warm + 1)} and no other")
+    (rec,) = engine.graphs.values()
+    twin.mine.load_state_dict(engine.mine.state_dict())
+    twin.optimizer.load_state_dict(copy.deepcopy(
+        engine.optimizer.state_dict()))
+    twin.log_ma = engine.log_ma.clone()
+    twin_gen = torch.Generator(device="cuda")
+    twin_gen.set_state(gen.get_state())
+    p0 = [p.detach().clone() for p in engine.mine.parameters()]
+    eager, replayed = [], []
+    for i in range(n_steps):
+        (loss, _), draws = twin._update(images, rows[warm + i], twin_gen)
+        eager.append((draws, _dropout_masks(torch, twin.simclr), loss))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(n_steps):
+            state, (losses, _) = engine.train_chunk(
+                state, images, rows[warm + i:warm + i + 1], gen)
+            replayed.append((tuple(_clone_draws(torch, d)
+                                   for d in rec.draws),
+                             _dropout_masks(torch, engine.simclr),
+                             losses[0]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if len(engine.graphs) != 1 or state.step != warm + n_steps:
+        raise AssertionError(f"MINE step: captured {len(engine.graphs)} "
+                             f"times, step {state.step}")
+    sites = len(replayed[0][1])
+    for i, ((de, me, _), (dr, mr, _)) in enumerate(zip(eager, replayed)):
+        if not all(_draws_equal(torch, a, b) for a, b in zip(de, dr)):
+            raise AssertionError(f"MINE step: replay {i} drew other view "
+                                 "parameters than the eager step")
+        if len(me) != sites or not all(torch.equal(a, b)
+                                       for a, b in zip(me, mr)):
+            raise AssertionError(f"MINE step: replay {i} drew other "
+                                 "dropout masks than the eager step")
+    for i in range(n_steps - 1):
+        if any(torch.equal(a, b) for a, b in
+               zip(replayed[i][1], replayed[i + 1][1])):
+            raise AssertionError(f"MINE step: replays {i} and {i + 1} drew "
+                                 "the same dropout mask")
+    le = [l.item() for *_, l in eager]
+    lr_ = [l.item() for *_, l in replayed]
+    loss_diff = max(abs(a - b) / max(abs(b), 1e-3) for a, b in zip(lr_, le))
+    rel = _rel_change(torch, engine.mine, twin.mine, p0)
+    ema = abs(engine.log_ma.item() - twin.log_ma.item())
+    if not (loss_diff <= _MINE_LOSS_RTOL and rel <= _GRAPH_PARAM_REL
+            and ema <= _MINE_LOSS_RTOL * max(abs(twin.log_ma.item()), 1)):
+        raise AssertionError(f"MINE step: replayed losses {lr_}, eager {le};"
+                             f" MineNet {rel:.2e} of the change apart; EMA "
+                             f"{engine.log_ma.item()} vs {twin.log_ma.item()}")
+    del engine, twin, rec
+    gc.collect()
+    return (f"MINE step (repr, batch {batch}, MC dropout at {sites} sites, "
+            f"B2 {3 * (warm + 1)} launches in {warm} eager steps and the "
+            f"capture): views and masks identical, masks varying; losses "
+            f"replayed {[round(v, 6) for v in lr_]} eager "
+            f"{[round(v, 6) for v in le]} (max rel {loss_diff:.1e}, tol "
+            f"{_MINE_LOSS_RTOL}); MineNet {rel:.1e} of the change (tol "
+            f"{_GRAPH_PARAM_REL}); EMA {ema:.1e} apart")
 
 
 @phase("graph")
@@ -2080,11 +2220,7 @@ def graph_phase(torch):
         lr_ = [l.item() for _, l in replayed]
         rtol = _GRAPH_LOSS_RTOL[cfg.model.compute_dtype]
         loss_diff = max(abs(a - b) / abs(b) for a, b in zip(lr_, le))
-        change = torch.cat([(p - q).flatten() for p, q in
-                            zip(twin.parameters(), p0)]).norm()
-        diff = torch.cat([(p - q).flatten() for p, q in
-                          zip(model.parameters(), twin.parameters())]).norm()
-        rel = (diff / change).item()
+        rel = _rel_change(torch, model, twin, p0)
         same = all(torch.equal(p, q) for p, q in
                    zip(model.parameters(), twin.parameters()))
         if not (loss_diff <= rtol and rel <= _GRAPH_PARAM_REL):
@@ -2098,8 +2234,14 @@ def graph_phase(torch):
                      f"(tol {_GRAPH_PARAM_REL}), bit-identical: {same}")
         del engine, twin_engine, rec
         gc.collect()
+    from simclr_tpu_torch.train.supervised import init_supervised
     for name, over, _, kernels in _PARITY[:2]:
-        notes.append(_finetune_graph_check(torch, name, over, kernels))
+        notes.append(_classifier_graph_check(torch, f"fine-tune {name}",
+                                             over, kernels))
+    notes.append(_classifier_graph_check(
+        torch, "supervised half-step", {}, ("color",), init_supervised,
+        augment="supervised"))
+    notes.append(_mine_graph_check(torch))
     return {"summary": "no sync in the replays; " + "; ".join(notes)}
 
 
@@ -2421,6 +2563,221 @@ def ssl_phase(torch, smi, pre):
                        f"unchanged, f moved {f_moved:.2e} in relative norm"}
 
 
+def _by_category(by_name):
+    """Device ms by kernel category (``_CATEGORIES``), largest first."""
+    cats = {}
+    for name, ms in by_name.items():
+        low = name.lower()
+        cat = next((c for c, keys in _CATEGORIES
+                    if any(k in low for k in keys)), "other")
+        cats[cat] = cats.get(cat, 0.0) + ms
+    return sorted(cats.items(), key=lambda kv: -kv[1])
+
+
+def _replays_busy(torch, run):
+    """Two replayed steps of ``run`` under the profiler: (wall ms, device
+    busy ms, "category ms, ..." text) a step."""
+    _, wall_ms, by_name = _profiled(torch, run)
+    text = ", ".join(f"{c} {ms / 2:.2f}" for c, ms in _by_category(by_name))
+    return wall_ms / 2, sum(by_name.values()) / 2, text
+
+
+@phase("supervised")
+def supervised_phase(torch, smi, pre):
+    """``train_supervised`` at full width (CIFAR-stem ResNet-50, bf16) on
+    the pretrain phase's 3,277 images, ``micro_batch_size`` 64 (51 batches,
+    102 half-steps an epoch), 2 epochs, validated and tested on the 819.
+    The launch counts are set to 0 before and read after: B2 once in each
+    of the WARMUP_STEPS eager half-steps and once in the capture (replays
+    do not count), no other kernel. The history must be finite; the
+    parameters at the end must be those of the best epoch (kept by the
+    log callback when it is announced), bit for bit. Then two more
+    half-steps replayed under the profiler on a new engine: the device's
+    busy share."""
+    from simclr_tpu_torch.config import Config
+    from simclr_tpu_torch.data.pipeline import epoch_permutation
+    from simclr_tpu_torch.train.common import WARMUP_STEPS
+    from simclr_tpu_torch.train.ssl import SupervisedEngine
+    from simclr_tpu_torch.train.supervised import train_supervised
+
+    cfg = Config()
+    batch = cfg.train.micro_batch_size
+    train, test = pre["split"].train, pre["split"].val
+    lines, best = [], {}
+
+    def log(line):
+        lines.append(line)
+        if line.startswith("Found a better model"):
+            best["params"] = [p.detach().clone() for p in
+                              best["model"].parameters()]
+
+    # The model is built inside train_supervised: keep a handle on it,
+    # so that the log callback can copy the best epoch's parameters.
+    import simclr_tpu_torch.train.supervised as sup
+    init = sup.init_supervised
+
+    def init_and_keep(*args, **kwargs):
+        out = init(*args, **kwargs)
+        best["model"] = out[0]
+        return out
+
+    sup.init_supervised = init_and_keep
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        result = train_supervised(cfg, train, val_ds=test, test_ds=test,
+                                  n_epochs=2, log=log)
+    finally:
+        sup.init_supervised = init
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.cuda.max_memory_reserved() / 2 ** 30)
+    want = {k: 0 for k in launches}
+    want["color"] = WARMUP_STEPS + 1
+    if launches != want:
+        raise AssertionError(f"supervised: launches {launches}, expected "
+                             f"{want}")
+    hist = result.history.to_dict()
+    values = [v for d in hist.values() for s in d.values() for v in s]
+    half_steps = 2 * (train.n // batch)
+    if (len(hist["loss"]["train"]) != 2 or len(hist["loss"]["valid"]) != 2
+            or result.state.step != 2 * half_steps
+            or not all(math.isfinite(v) for v in values)
+            or not math.isfinite(result.test_acc)):
+        raise AssertionError(f"supervised history {hist}, step "
+                             f"{result.state.step}, test {result.test_acc}")
+    model = result.state.model
+    if "params" not in best or not all(
+            torch.equal(p, q) for p, q in zip(model.parameters(),
+                                              best["params"])):
+        raise AssertionError("the best epoch's parameters were not "
+                             "restored")
+    engine = SupervisedEngine(model, result.state.optimizer, cfg,
+                              augment="supervised")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    idx = epoch_permutation(gen, train.n, batch)[:2].repeat_interleave(
+        2, dim=0)
+    state, _ = engine.train_epoch(result.state, train.images, train.labels,
+                                  idx[:2], gen)
+    wall, busy, cats = _replays_busy(torch, lambda: engine.train_epoch(
+        state, train.images, train.labels, idx[2:], gen))
+    secs = result.epoch_seconds
+    print(f"  supervised: epoch 1 ({WARMUP_STEPS} eager half-steps, the "
+          f"capture, {half_steps - WARMUP_STEPS} replays, validation) "
+          f"{secs[0]:.3f} s, epoch 2 ({half_steps} replays) {secs[1]:.3f} "
+          f"s, {half_steps / secs[1]:.3f} half-steps/s; a replayed "
+          f"half-step {wall:.2f} ms wall (profiled), device busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.1f}%); peak {peak[0]:.2f} "
+          f"GiB allocated, {peak[1]:.2f} GiB reserved; best val top-1 "
+          f"{result.best_acc:.2f}%, test top-1 {result.test_acc:.2f}%; on "
+          f"{smi}")
+    print(f"  supervised: device ms a replayed half-step by category: "
+          f"{cats}")
+    print("  supervised: train_supervised's log: " + " / ".join(lines))
+    del engine, result, model, state, best
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"summary": f"2 epochs of {half_steps} half-steps at batch "
+                       f"{batch}: train losses "
+                       f"{[round(v, 4) for v in hist['loss']['train']]}, "
+                       f"valid top-1 "
+                       f"{[round(v, 2) for v in hist['accuracy']['valid']]}"
+                       f"; B2 {want['color']} launches (eager and capture),"
+                       f" no other kernel; best epoch's parameters "
+                       f"restored"}
+
+
+def _mine_run(torch, smi, cfg, pre, n_iter, mode, per_step):
+    """One ``train_mine_from_export`` run at batch 256 and hidden width
+    512 (chunks of 50 steps); its B2 launches must be ``per_step`` in the
+    EMA's first sample, each WARMUP_STEPS eager step and the capture, and
+    no other kernel may run. Then two more steps replayed under the
+    profiler on a new engine. Returns its numbers."""
+    from simclr_tpu_torch.train.common import WARMUP_STEPS
+    from simclr_tpu_torch.train.mine import (
+        build_mine, draw_rows, train_mine_from_export)
+    from simclr_tpu_torch.utils.checkpoint import load_pretrained
+
+    train = pre["split"].train
+    repr_mode = mode == "repr"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    lines = []
+    result = train_mine_from_export(
+        cfg, train, pre["export"], n_iter=n_iter, mi_between_repr=repr_mode,
+        batch_size=256, hidden_size=512, log=lines.append, device="cuda")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.cuda.max_memory_reserved() / 2 ** 30)
+    want = {k: 0 for k in launches}
+    want["color"] = per_step * (1 + WARMUP_STEPS + 1)
+    if launches != want:
+        raise AssertionError(f"MINE {mode}: launches {launches}, expected "
+                             f"{want}")
+    traces = [float(v) for v in (*result.loss_trace, *result.mi_trace)]
+    if (result.state.step != n_iter or len(result.loss_trace) != n_iter // 50
+            or not all(math.isfinite(v) for v in traces)):
+        raise AssertionError(f"MINE {mode}: step {result.state.step}, "
+                             f"traces {traces}")
+    sd, _ = load_pretrained(pre["export"])
+    engine, state = build_mine(cfg, sd, mi_between_repr=repr_mode,
+                               hidden_size=512, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    engine.init_log_ma(train.images, draw_rows(gen, train.n, 1, 256)[0], gen)
+    rows = draw_rows(gen, train.n, 4, 256)
+    state, _ = engine.train_chunk(state, train.images, rows[:2], gen)
+    wall, busy, cats = _replays_busy(torch, lambda: engine.train_chunk(
+        state, train.images, rows[2:], gen))
+    steady = result.chunk_seconds[1:]
+    step_ms = (1e3 * statistics.median(steady) / 50 if steady else None)
+    del engine, state, result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(traces=traces, lines=lines, wall=wall, busy=busy, peak=peak,
+                step_ms=step_ms, b2=want["color"], cats=cats)
+
+
+@phase("mine")
+def mine_phase(torch, smi, pre):
+    """``train_mine_from_export`` on the pretrain phase's export at full
+    width over its 3,277 images, batch 256 and hidden width 512: ``repr``
+    mode with ``ModelConfig(encoder='dropout')`` for 200 steps (4 chunks;
+    B2 three times a step), then ``orig`` mode without dropout for 50
+    steps (1 chunk; B2 twice a step, MineNet 5,120 wide). Each run's
+    launch counts are checked (``_mine_run``) and its traces must be
+    finite; ms a step from the replayed chunks, the busy share of two
+    replayed steps under the profiler, peak memory."""
+    from simclr_tpu_torch.config import Config
+
+    base = Config()
+    dropout = base.replace(model=dataclasses.replace(base.model,
+                                                     encoder="dropout"))
+    runs = {"repr": _mine_run(torch, smi, dropout, pre, 200, "repr", 3),
+            "orig": _mine_run(torch, smi, base, pre, 50, "orig", 2)}
+    for mode, r in runs.items():
+        step = (f"{r['step_ms']:.2f} ms a step (median replayed chunk of 50,"
+                f" with its host fetch), " if r["step_ms"] else "")
+        print(f"  mine {mode}: {step}a replayed step {r['wall']:.2f} ms wall "
+              f"(profiled), device busy {r['busy']:.2f} ms "
+              f"({100 * r['busy'] / r['wall']:.1f}%); peak {r['peak'][0]:.2f}"
+              f" GiB allocated, {r['peak'][1]:.2f} GiB reserved; on {smi}")
+        print(f"  mine {mode}: device ms a replayed step by category: "
+              f"{r['cats']}")
+        print(f"  mine {mode}: train_mine's log: " + " / ".join(r["lines"]))
+    rt, ot = runs["repr"]["traces"], runs["orig"]["traces"]
+    return {"summary": f"repr with MC dropout, 200 steps: loss trace "
+                       f"{[round(v, 4) for v in rt[:4]]}, MI trace "
+                       f"{[round(v, 4) for v in rt[4:]]}; orig, 50 steps: "
+                       f"loss {ot[0]:.4f}, MI {ot[1]:.4f}; B2 "
+                       f"{runs['repr']['b2']} / {runs['orig']['b2']} launches"
+                       f" (3 / 2 a step in the EMA's first sample, "
+                       f"the eager steps and the capture), no other kernel"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2482,6 +2839,8 @@ def main() -> int:
         pre = pretrain_phase(torch, info["smi"], tmp)
         lin_eval_phase(torch, info["smi"], pre)
         ssl_phase(torch, info["smi"], pre)
+        supervised_phase(torch, info["smi"], pre)
+        mine_phase(torch, info["smi"], pre)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -6,8 +6,8 @@ an index matrix, and a batch is a row gather from it. ``make_split``
 decides which samples live where for each training mode, with the JAX
 package's indices; augmentation runs inside the engine's step.
 
-``infinite_stream`` and ``host_stream`` come with the trainers that use
-them (ROADMAP Queue A items 8 and 10).
+``infinite_stream`` yields shuffled batches without end; ``host_stream``
+comes with the streaming path that uses it (ROADMAP Queue A item 10).
 """
 
 from __future__ import annotations
@@ -108,6 +108,16 @@ def iterate_epoch(
     idx = epoch_permutation(generator, ds.n, batch_size, drop_remainder)
     for step in range(idx.shape[0]):
         yield take_batch(ds, idx[step])
+
+
+def infinite_stream(
+    ds: DeviceDataset, generator: torch.Generator, batch_size: int,
+) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Shuffled batches of one epoch after another, without end (for
+    MINE; fixes the reference's per-iteration DataLoader rebuild,
+    mine.py:38-39)."""
+    while True:
+        yield from iterate_epoch(ds, generator, batch_size)
 
 
 def iterate_sequential(

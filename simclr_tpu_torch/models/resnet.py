@@ -1,14 +1,14 @@
 """ResNet encoder with subset-statistics BatchNorm.
 
 Counterpart of ``simclr_tpu/models/resnet.py``'s default path and its
-``bn_relu_fused``, ``bn_fused_vjp``, ``winograd_conv2``, ``conv64_pallas``
-and ``fuse_identity_blocks`` paths: ``Bottleneck`` (1x1 -> 3x3(stride) ->
-1x1, expansion 4, with ``shadow_bn3`` or with the block's BNs as
-``SubsetBNAct``, conv2 through kernel B5 or B4 where the flags and the
-block's shape select them, or the whole identity block through kernels
-B6f/B6b) and ``ResNetEncoder`` with the CIFAR stem
-(3x3 stride 1, no max-pool) or the STL stem (7x7 stride 2, 3x3 stride-2
-max-pool).
+``bn_relu_fused``, ``bn_fused_vjp``, ``winograd_conv2``, ``conv64_pallas``,
+``fuse_identity_blocks`` and MC-dropout paths: ``Bottleneck`` (1x1 ->
+3x3(stride) -> 1x1, expansion 4, with ``shadow_bn3`` or with the block's
+BNs as ``SubsetBNAct``, conv2 through kernel B5 or B4 where the flags and
+the block's shape select them, or the whole identity block through
+kernels B6f/B6b), ``ResNetEncoder`` with the CIFAR stem (3x3 stride 1, no
+max-pool) or the STL stem (7x7 stride 2, 3x3 stride-2 max-pool), and the
+supervised baseline's ``SupervisedResNet``.
 
 Inputs are NCHW, normally in ``torch.channels_last`` memory (physically
 NHWC, as on the JAX side). Parameters are float32; convolutions run in
@@ -111,6 +111,51 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
+
+
+class MCDropout(nn.Module):
+    """Always-on dropout with flax's arithmetic (reference:
+    models/resnets.py:110-113 keeps it on at evaluation): keep each value
+    with probability 1 - rate and scale it by 1 / (1 - rate); rate 0
+    returns the input and rate 1 zeros, drawing nothing. Unlike
+    ``nn.Dropout`` it stays on in eval mode, and it draws its mask from
+    the ``generator`` passed to ``forward`` (raising without one, as flax
+    raises without a ``'dropout'`` stream), so a CUDA graph that
+    registers that generator draws new masks on every replay. A 4-D
+    input is NCHW in channels_last memory: its mask is drawn in NHWC
+    order, so that the output keeps that memory format.
+
+    With ``record`` set, each call keeps its boolean mask in ``mask``
+    (tests and the card's graph check compare them)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.record = False
+        self.mask: Optional[torch.Tensor] = None
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        if generator is None:
+            raise ValueError("MC dropout draws its masks from a generator: "
+                             "pass generator=")
+        if self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        if x.dim() == 4:
+            n, c, h, w = x.shape
+            u = torch.rand((n, h, w, c), generator=generator,
+                           device=x.device).permute(0, 3, 1, 2)
+        else:
+            u = torch.rand(x.shape, generator=generator, device=x.device)
+        mask = u < keep
+        if self.record:
+            self.mask = mask
+        # flax divides by keep_prob in the input's dtype.
+        scale = torch.full((), keep, dtype=x.dtype, device=x.device)
+        return torch.where(mask, x / scale, torch.zeros_like(x))
 
 
 NormFactory = Callable[[int], SubsetBatchNorm]
@@ -254,7 +299,10 @@ class ResNetEncoder(nn.Module):
 
     ``fuse_identity_blocks`` fuses every identity block whose width is at
     least ``fuse_min_width``; as in JAX, it switches ``bn_relu_fused``
-    off."""
+    off. ``mc_dropout``: an ``MCDropout(drop_prob)`` after the stem's
+    ReLU (before the STL stem's max-pool) and after each of the four
+    stages, on in train and eval mode alike; ``forward`` then takes the
+    generator that draws the masks."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  width: int = 64, low_quality_img: bool = True,
@@ -271,10 +319,13 @@ class ResNetEncoder(nn.Module):
                  conv64_pallas: bool = False,
                  fuse_identity_blocks: bool = False,
                  fuse_min_width: int = 0,
+                 mc_dropout: bool = False,
+                 drop_prob: float = 0.3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
         self.low_quality_img = low_quality_img
+        self.mc_dropout = mc_dropout
 
         def norm(features):
             return SubsetBatchNorm(
@@ -297,7 +348,10 @@ class ResNetEncoder(nn.Module):
             self.stem_conv = Conv(3, width, 7, 2, 3, dtype=dtype,
                                   generator=generator)
         self.stem_bn = norm(width)
+        if mc_dropout:
+            self.stem_dropout = MCDropout(drop_prob)
         self.block_names = []
+        self.stage_ends = {}
         in_features = width
         for stage, n_blocks in enumerate(stage_sizes):
             for block in range(n_blocks):
@@ -315,12 +369,51 @@ class ResNetEncoder(nn.Module):
                     generator=generator))
                 self.block_names.append(name)
                 in_features = features * Bottleneck.expansion
+            if mc_dropout and n_blocks:
+                self.stage_ends[name] = f"layer{stage + 1}_dropout"
+                self.add_module(self.stage_ends[name], MCDropout(drop_prob))
         self.out_features = in_features
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         x = F.relu(self.stem_bn(self.stem_conv(x.to(self.dtype))))
+        if self.mc_dropout:
+            x = self.stem_dropout(x, generator)
         if not self.low_quality_img:
             x = F.max_pool2d(x, 3, 2, 1)
         for name in self.block_names:
             x = getattr(self, name)(x)
+            if name in self.stage_ends:
+                x = getattr(self, self.stage_ends[name])(x, generator)
         return x.mean(dim=(2, 3)).to(torch.float32)
+
+
+class SupervisedResNet(nn.Module):
+    """ResNet classifier: the trunk, named ``encoder``, then a float32
+    ``Linear`` named ``fc`` (reference: models/resnets.py:54-89; JAX
+    ``SupervisedResNet``). Like ``train_supervised`` on the JAX side, it
+    takes only these fields of the config: its BNs run the exact
+    full-gradient mode with no shadow statistics and no kernel, and it
+    has no dropout. ``forward(x, generator=None) -> logits``; the
+    generator is accepted so that every classifier of
+    ``train/ssl.py:SupervisedEngine`` is called alike, and unused."""
+
+    def __init__(self, num_classes: int = 10, low_quality_img: bool = True,
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
+                 dtype: torch.dtype = torch.bfloat16,
+                 bn_dtype: torch.dtype = torch.bfloat16,
+                 bn_stats_fraction: float = 0.25,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.encoder = ResNetEncoder(
+            stage_sizes=stage_sizes, width=width,
+            low_quality_img=low_quality_img, dtype=dtype, bn_dtype=bn_dtype,
+            bn_stats_fraction=bn_stats_fraction, generator=generator)
+        self.fc = Linear(self.encoder.out_features, num_classes,
+                         dtype=torch.float32, generator=generator)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        return self.fc(self.encoder(x, generator))

@@ -7,10 +7,12 @@ bias-free Linear -> BN (reference: models/simclr.py:27-41).
 The default path of ``ModelConfig`` is ported, and with it
 ``bn_relu_fused`` (the block BNs as ``SubsetBNAct``, backward through
 kernel B3), ``bn_fused_vjp``, ``winograd_conv2`` (kernel B5),
-``conv64_pallas`` (kernel B4) and ``fuse_identity_blocks`` with
-``fuse_min_width`` (kernels B6f/B6b); their ``*_interpret`` twins are
+``conv64_pallas`` (kernel B4), ``fuse_identity_blocks`` with
+``fuse_min_width`` (kernels B6f/B6b) and ``encoder='dropout'`` (MC dropout
+after the stem, each stage and each hidden layer of the head, masks drawn
+from the generator passed to ``forward``); the ``*_interpret`` twins are
 unused (on the CPU the kernel wrappers run their plain versions). A flag
-that selects another path (the folded blocks, MC dropout, ...) raises
+that selects another path (the folded blocks, ...) raises
 ``NotImplementedError`` rather than quietly running the default.
 """
 
@@ -24,12 +26,11 @@ import torch.nn.functional as F
 
 from simclr_tpu_torch.config import ModelConfig
 from simclr_tpu_torch.models.norm import SubsetBatchNorm
-from simclr_tpu_torch.models.resnet import Linear, ResNetEncoder
+from simclr_tpu_torch.models.resnet import Linear, MCDropout, ResNetEncoder
 
 # ModelConfig fields of paths not ported yet, with the value that keeps
 # them off. None counts as off: init_simclr resolves it to False.
 _UNPORTED_OFF = {
-    "encoder": "no_dropout",
     "fold_bn_scales": False,
     "relu_barrier": False,
     "bn12_shadow_stats": False,
@@ -42,6 +43,9 @@ _UNPORTED_OFF = {
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a ModelConfig path not ported yet."""
+    if cfg.encoder not in ("no_dropout", "dropout"):
+        raise ValueError(f"unknown encoder {cfg.encoder!r} (expected "
+                         "'no_dropout' or 'dropout')")
     for field, off in _UNPORTED_OFF.items():
         value = getattr(cfg, field)
         if isinstance(off, tuple):
@@ -77,15 +81,20 @@ def _make_encoder(cfg: ModelConfig,
         conv64_pallas=bool(cfg.conv64_pallas),
         fuse_identity_blocks=bool(cfg.fuse_identity_blocks),
         fuse_min_width=cfg.fuse_min_width,
+        mc_dropout=cfg.encoder == "dropout",
+        drop_prob=cfg.drop_prob,
         generator=generator,
     )
 
 
 class ProjectionHead(nn.Module):
-    """MLP g(.) (reference: models/simclr.py:27-41)."""
+    """MLP g(.) (reference: models/simclr.py:27-41). With ``mc_dropout``
+    an ``MCDropout(drop_prob)`` follows each hidden ReLU (reference:
+    models/simclr.py:35-36); ``forward`` then takes its generator."""
 
     def __init__(self, in_features: int, feature_dim: int = 2048,
                  output_dim: int = 128, num_layers: int = 2,
+                 mc_dropout: bool = False, drop_prob: float = 0.3,
                  dtype: torch.dtype = torch.bfloat16,
                  bn_dtype: torch.dtype = torch.bfloat16,
                  bn_stats_fraction: float = 0.25,
@@ -96,6 +105,7 @@ class ProjectionHead(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.num_layers = num_layers
+        self.mc_dropout = mc_dropout
 
         def norm(features):
             return SubsetBatchNorm(
@@ -108,17 +118,23 @@ class ProjectionHead(nn.Module):
             self.add_module(f"linear{i}", Linear(
                 width, feature_dim, dtype=dtype, generator=generator))
             self.add_module(f"bn{i}", norm(feature_dim))
+            if mc_dropout:
+                self.add_module(f"dropout{i}", MCDropout(drop_prob))
             width = feature_dim
         last = num_layers - 1
         self.add_module(f"linear{last}", Linear(
             width, output_dim, bias=False, dtype=dtype, generator=generator))
         self.add_module(f"bn{last}", norm(output_dim))
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         x = h.to(self.dtype)
         for i in range(self.num_layers - 1):
             x = getattr(self, f"linear{i}")(x)
             x = F.relu(getattr(self, f"bn{i}")(x))
+            if self.mc_dropout:
+                x = getattr(self, f"dropout{i}")(x, generator)
         last = self.num_layers - 1
         x = getattr(self, f"bn{last}")(getattr(self, f"linear{last}")(x))
         return x.to(torch.float32)
@@ -131,6 +147,8 @@ def _make_head(cfg: ModelConfig, in_features: int,
         feature_dim=cfg.feature_dim,
         output_dim=cfg.compressed_dim,
         num_layers=cfg.num_proj_layers,
+        mc_dropout=cfg.encoder == "dropout",
+        drop_prob=cfg.drop_prob,
         dtype=dtype_of(cfg.compute_dtype),
         bn_dtype=dtype_of(cfg.bn_dtype),
         bn_stats_fraction=cfg.bn_stats_fraction,
@@ -142,8 +160,10 @@ def _make_head(cfg: ModelConfig, in_features: int,
 
 
 class SimCLR(nn.Module):
-    """Encoder + projection head; ``forward(x) -> (h, z)`` for NCHW images
-    (reference: models/simclr.py:43-46)."""
+    """Encoder + projection head; ``forward(x, generator=None) -> (h, z)``
+    for NCHW images (reference: models/simclr.py:43-46). ``generator``
+    draws the MC-dropout masks, the encoder's first; a model without
+    dropout draws nothing from it."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(),
                  generator: Optional[torch.Generator] = None):
@@ -152,14 +172,17 @@ class SimCLR(nn.Module):
         self.f = _make_encoder(cfg, generator)
         self.g = _make_head(cfg, self.f.out_features, generator)
 
-    def forward(self, x: torch.Tensor):
-        h = self.f(x)
-        return h, self.g(h)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        h = self.f(x, generator)
+        return h, self.g(h, generator)
 
 
 class SimCLRFineTune(nn.Module):
-    """Encoder + float32 linear supervised head; ``forward(x) -> logits``
-    for NCHW images (reference: models/ssl.py:6-35).
+    """Encoder + float32 linear supervised head; ``forward(x,
+    generator=None) -> logits`` for NCHW images (reference:
+    models/ssl.py:6-35); ``generator`` draws the encoder's MC-dropout
+    masks.
 
     The projection head ``g`` is built so that the parameter tree is
     SimCLR's and a pretrained export loads whole, but the forward never
@@ -181,5 +204,7 @@ class SimCLRFineTune(nn.Module):
                                       dtype=torch.float32,
                                       generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.supervised_head(self.f(x))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        return self.supervised_head(self.f(x, generator))

@@ -4,8 +4,9 @@ Counterpart of the training, test and fine-tune paths of
 ``simclr_tpu/ops/augment.py``: random resized crop and flip as two batched
 matmuls against tent-weight matrices, colour jitter in a per-image random
 order, random grayscale, normalisation and a per-image-sigma Gaussian
-blur; the test view (centre crop, normalise) and the fine-tune view (crop,
-flip, normalise).
+blur; the test view (centre crop, normalise), the fine-tune view (crop,
+flip, normalise) and the supervised baseline's view (flip, translate,
+then colour jitter and normalisation through kernel B2).
 
 Every random step is split in two: a ``sample_*`` function draws the
 parameters from an explicit ``torch.Generator``, and an apply function takes
@@ -46,14 +47,22 @@ def _uniform(generator: torch.Generator, n: int, lo: float = 0.0,
 # ---------------------------------------------------------------------------
 
 def _interp_matrix(src_pos: torch.Tensor, in_size: int,
-                   support: torch.Tensor) -> torch.Tensor:
+                   support: torch.Tensor,
+                   zero_outside: bool = False) -> torch.Tensor:
     """Normalised tent-filter weights (N, OUT, IN) for source coordinates
-    (N, OUT), clamped to the image (edge replication, as PIL)."""
+    (N, OUT), clamped to the image (edge replication, as PIL); with
+    ``zero_outside`` unclamped, and a row whose weights all vanish stays
+    all-zero (zero fill)."""
     k = torch.arange(in_size, dtype=torch.float32, device=src_pos.device)
-    src_pos = src_pos.clamp(0.0, in_size - 1.0)
+    if not zero_outside:
+        src_pos = src_pos.clamp(0.0, in_size - 1.0)
     d = (src_pos[..., None] - k).abs() / support[..., None]
     w = (1.0 - d).clamp_min(0.0)
-    return w / w.sum(dim=-1, keepdim=True).clamp_min(1e-8)
+    norm = w.sum(dim=-1, keepdim=True)
+    if zero_outside:
+        return torch.where(norm > 0, w / norm.clamp_min(1e-8),
+                           torch.zeros_like(w))
+    return w / norm.clamp_min(1e-8)
 
 
 def _apply_separable(images: torch.Tensor, wh: torch.Tensor,
@@ -132,6 +141,43 @@ def random_resized_crop_flip(
     boxes = sample_crop_boxes(generator, n, in_h, in_w, scale, ratio)
     flip = sample_flips(generator, n, flip_prob)
     return crop_resize_flip(images, boxes, out_size, flip, antialias)
+
+
+def sample_translate(generator: torch.Generator, n: int, h: int, w: int,
+                     max_translate: Tuple[float, float]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Integer pixel shifts (ty, tx), each (N,) float32: round(U(-t h,
+    t h)) with t = ``max_translate[1]``, and round(U(-t w, t w)) with t =
+    ``max_translate[0]`` (torchvision's RandomAffine translate; torch.round
+    and jnp.round both round half to even)."""
+    ty = torch.round(_uniform(generator, n, -max_translate[1] * h,
+                              max_translate[1] * h))
+    tx = torch.round(_uniform(generator, n, -max_translate[0] * w,
+                              max_translate[0] * w))
+    return ty, tx
+
+
+def translate_apply(images: torch.Tensor, ty: torch.Tensor,
+                    tx: torch.Tensor) -> torch.Tensor:
+    """Shift NHWC images by (ty, tx) pixels with zero fill, as two batched
+    matmuls against 0/1 tent matrices (exact for integer shifts)."""
+    n, h, w = images.shape[0], images.shape[1], images.shape[2]
+    dev = images.device
+    u = torch.arange(h, dtype=torch.float32, device=dev)
+    v = torch.arange(w, dtype=torch.float32, device=dev)
+    one = torch.ones((n, 1), dtype=torch.float32, device=dev)
+    wh = _interp_matrix(u[None, :] - ty[:, None], h, one, zero_outside=True)
+    ww = _interp_matrix(v[None, :] - tx[:, None], w, one, zero_outside=True)
+    return _apply_separable(images, wh, ww)
+
+
+def random_translate(generator: torch.Generator, images: torch.Tensor,
+                     max_translate: Tuple[float, float]) -> torch.Tensor:
+    """RandomAffine(degrees=0, translate) with zero fill (reference:
+    data.py:213-214, the supervised pipeline)."""
+    ty, tx = sample_translate(generator, images.shape[0], images.shape[1],
+                              images.shape[2], max_translate)
+    return translate_apply(images, ty, tx)
 
 
 # ---------------------------------------------------------------------------
@@ -497,3 +543,60 @@ def augment_fine_tune(
     params = sample_fine_tune_params(generator, images.shape[0],
                                      images.shape[1], images.shape[2], aug)
     return augment_fine_tune_apply(images, params, ds)
+
+
+# ---------------------------------------------------------------------------
+# The supervised baseline's view.
+# ---------------------------------------------------------------------------
+
+# RandomAffine translate of the supervised pipeline (reference:
+# data.py:213-214), and ColorJitter(0.4, 0.4, 0.4, 0.1) under p = 0.5:
+# strength 0.5 gives 0.8 s = 0.4 and 0.2 s = 0.1.
+SUPERVISED_TRANSLATE = (0.3, 0.3)
+SUPERVISED_JITTER = (0.5, 0.5)  # (strength, apply_prob)
+
+
+@dataclasses.dataclass
+class SupervisedParams:
+    """The random draws of one supervised view of N images."""
+
+    flip: torch.Tensor      # (N,) bool
+    ty: torch.Tensor        # (N,) float32 integer row shifts
+    tx: torch.Tensor        # (N,) float32 integer column shifts
+    factors: torch.Tensor   # (N, 8) colour factors, gray flags all 0
+    schedule: torch.Tensor  # (N, 4) int32 colour-op order
+
+
+def sample_supervised_params(generator: torch.Generator, n: int, in_h: int,
+                             in_w: int) -> SupervisedParams:
+    flip = sample_flips(generator, n, 0.5)
+    ty, tx = sample_translate(generator, n, in_h, in_w,
+                              SUPERVISED_TRANSLATE)
+    factors, schedule = sample_color_params(generator, n,
+                                            *SUPERVISED_JITTER, 0.0)
+    return SupervisedParams(flip, ty, tx, factors, schedule)
+
+
+def augment_supervised_apply(images: torch.Tensor, params: SupervisedParams,
+                             ds: DatasetConfig) -> torch.Tensor:
+    """The supervised view of NHWC uint8 or float images with the given
+    draws: flip -> translate -> colour kernel B2 (jitter with every
+    grayscale flag 0, then normalise). Jitter comes before normalise, as
+    on the JAX side, which fixes the reference's order (data.py:205-216).
+    Returns (N, H, W, 3) float32."""
+    from simclr_tpu_torch.ops.kernels.color import color_distort
+
+    x = to_float(images)
+    x = torch.where(params.flip[:, None, None, None], x.flip(2), x)
+    x = translate_apply(x, params.ty, params.tx)
+    return color_distort(x, params.factors, params.schedule, ds.mean, ds.std)
+
+
+def augment_supervised(generator: torch.Generator, images: torch.Tensor,
+                       ds: DatasetConfig) -> torch.Tensor:
+    """Supervised-baseline stack (reference: data.py:195-217): flip p=0.5,
+    RandomAffine translate (0.3, 0.3), ColorJitter(0.4, 0.4, 0.4, 0.1)
+    p=0.5, normalise."""
+    params = sample_supervised_params(generator, images.shape[0],
+                                      images.shape[1], images.shape[2])
+    return augment_supervised_apply(images, params, ds)

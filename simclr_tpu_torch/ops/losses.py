@@ -1,4 +1,5 @@
-"""Training objectives: NT-Xent and the probabilistic contrastive variant.
+"""Training objectives: NT-Xent, the probabilistic contrastive variant and
+MINE's Donsker-Varadhan bound.
 
 Plain PyTorch counterparts of ``simclr_tpu/ops/losses.py``, and the plain
 version that the NT-Xent kernel (``ops/kernels/ntxent.py``) is held against.
@@ -8,6 +9,7 @@ JAX side asks with ``preferred_element_type=float32``.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -113,3 +115,37 @@ def modified_contrastive_loss(
     labels = torch.cat([idx, idx])
     return cross_entropy(log_logits, labels), top1_accuracy(
         log_logits, labels)
+
+
+def log_mean_exp(t: torch.Tensor) -> torch.Tensor:
+    """log(mean(exp(t))) over every entry, via logsumexp: never
+    overflows."""
+    return torch.logsumexp(t.flatten(), dim=0) - math.log(t.numel())
+
+
+def mine_loss(
+    t_joint: torch.Tensor,
+    t_marginal: torch.Tensor,
+    last_log_ma: Optional[torch.Tensor],
+    ma_rate: float = 1e-2,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Donsker-Varadhan MI bound with an EMA-debiased gradient (reference:
+    mine.py:97-109), in log space as on the JAX side: the moving average
+    is carried as log(ma), updated by logaddexp(last + log1p(-r),
+    log_mean_et + log r), and the debiased term is exp(log_mean_et -
+    log_ma) with ``log_ma`` detached, whose gradient et_i / (N ma) is the
+    reference's. ``t_*`` are (N, 1) statistics-network outputs; pass
+    ``last_log_ma=None`` on the first step (log_ma = log_mean_et).
+
+    Returns (surrogate loss, MI lower bound, new log-EMA state)."""
+    log_mean_et = log_mean_exp(t_marginal)
+    mean_t = t_joint.mean()
+    mi_lower_bound = mean_t - log_mean_et
+    if last_log_ma is None:
+        log_ma = log_mean_et
+    else:
+        log_ma = torch.logaddexp(last_log_ma + math.log1p(-ma_rate),
+                                 log_mean_et + math.log(ma_rate))
+    debias = torch.exp(log_mean_et - log_ma.detach())
+    loss = -(mean_t - debias)
+    return loss, mi_lower_bound, log_ma

@@ -6,10 +6,9 @@ versions). Run from the repository root:
 
     python -m simclr_tpu_torch.scripts.pretrain --dataset cifar10
 
-Data parallelism (``--n_devices`` above 1, ``--engine explicit``),
-gradient accumulation (``--accum_steps`` above 1) and the MC-dropout
-encoder (``--encoder_model dropout``) are not ported yet and raise
-NotImplementedError naming their ROADMAP item.
+Data parallelism (``--n_devices`` above 1, ``--engine explicit``) and
+gradient accumulation (``--accum_steps`` above 1) are not ported yet and
+raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -82,10 +81,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
         raise NotImplementedError(
             "--accum_steps > 1: gradient accumulation is ROADMAP Queue A "
             "item 3")
-    if args.encoder_model == "dropout":
-        raise NotImplementedError(
-            "--encoder_model dropout: the MC-dropout encoder is ROADMAP "
-            "Queue A item 7")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Iterator, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,13 +40,19 @@ def extract_features(
     cfg: Config,
     batch_size: int = 512,
     use_hidden_feat: bool = True,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval-mode forward of a ``SimCLR`` over the un-augmented, normalised
     images (``augment_test``), collecting h (or z) and the labels
     (reference: model_utils.py:176-200). Batches run in order and the last
     may be ragged: eval-mode BN is per sample, so this equals the JAX
-    side's padded tail. Returns float32 features (N, D) and the labels,
-    on the dataset's device."""
+    side's padded tail. A model with MC dropout draws its masks from
+    ``generator``, by default one seeded 0 on the dataset's device, as the
+    JAX side defaults to ``key(0)``. Returns float32 features (N, D) and
+    the labels, on the dataset's device."""
+    if generator is None:
+        generator = torch.Generator(
+            device=ds.images.device).manual_seed(0)
     training = model.training
     model.eval()
     try:
@@ -54,7 +60,7 @@ def extract_features(
         for start in range(0, ds.n, batch_size):
             x = augment_test(ds.images[start:start + batch_size],
                              cfg.dataset)
-            h, z = model(x.permute(0, 3, 1, 2))
+            h, z = model(x.permute(0, 3, 1, 2), generator)
             feats.append(h if use_hidden_feat else z)
     finally:
         model.train(training)

@@ -4,6 +4,8 @@ Counterpart of ``simclr_tpu/train/pretrain.py``. One step: gather a uint8
 batch from the device-resident dataset, augment two views (kernel B2 for
 the colour chain), one forward over all 2N images in ``channels_last``,
 NT-Xent (kernel B1 and its backward), backward, and torch-semantics Adam.
+With ``encoder='dropout'`` the sampling generator also draws the
+MC-dropout masks, after the views' draws.
 
 The JAX engine runs an epoch as one ``lax.scan`` dispatch. Here, on a
 CUDA device, ``train_epoch`` captures the step once as a CUDA graph and
@@ -96,14 +98,17 @@ def _nchw(v: torch.Tensor) -> torch.Tensor:
 
 
 def _forward_pair(model: SimCLR, v1: torch.Tensor, v2: torch.Tensor,
-                  two_pass: bool = False
+                  two_pass: bool = False,
+                  generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward both NHWC views; returns (z1, z2). One forward over the 2N
     images, or with ``two_pass`` the reference's two sequential forwards,
-    each with its own BN batch statistics (model_utils.py:113-114)."""
+    each with its own BN batch statistics (model_utils.py:113-114).
+    ``generator`` draws the MC-dropout masks, if the model has them."""
     if two_pass:
-        return model(_nchw(v1))[1], model(_nchw(v2))[1]
-    _, z = model(_nchw(torch.cat([v1, v2], dim=0)))
+        return (model(_nchw(v1), generator)[1],
+                model(_nchw(v2), generator)[1])
+    _, z = model(_nchw(torch.cat([v1, v2], dim=0)), generator)
     return z.chunk(2, dim=0)
 
 
@@ -133,14 +138,17 @@ class PretrainEngine:
         return (augment_train_apply(batch, params[0], ds),
                 augment_train_apply(batch, params[1], ds))
 
-    def _update(self, batch: torch.Tensor, params: PairParams
+    def _update(self, batch: torch.Tensor, params: PairParams,
+                generator: Optional[torch.Generator]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Forward, loss, backward and Adam on a uint8 NHWC batch with the
-        given draws; returns (loss / accum_steps, accuracy %). Touches no
-        host state, so a CUDA graph can capture it."""
+        given view draws (and the MC-dropout masks, if the model has them,
+        from ``generator``); returns (loss / accum_steps, accuracy %).
+        Touches no host state, so a CUDA graph can capture it."""
         self.model.train()
         z1, z2 = _forward_pair(self.model, *self._views(batch, params),
-                               two_pass=self.two_pass_views)
+                               two_pass=self.two_pass_views,
+                               generator=generator)
         loss, acc = self.loss_fn(z1, z2)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -150,17 +158,19 @@ class PretrainEngine:
         return loss.detach() / self.accum, acc.detach()
 
     def train_step_on_params(self, state: TrainState, batch: torch.Tensor,
-                             params: PairParams):
-        """One step on a uint8 NHWC batch with given augmentation draws;
-        returns (state, (loss / accum_steps, accuracy %))."""
-        metrics = self._update(batch, params)
+                             params: PairParams,
+                             generator: Optional[torch.Generator] = None):
+        """One step on a uint8 NHWC batch with given augmentation draws
+        (and the generator of the MC-dropout masks, where the model has
+        them); returns (state, (loss / accum_steps, accuracy %))."""
+        metrics = self._update(batch, params, generator)
         state.step += 1
         return state, metrics
 
     def train_step_on_batch(self, state: TrainState, batch: torch.Tensor,
                             generator: torch.Generator):
         params = self.sample_pair_params(generator, *batch.shape[:3])
-        return self.train_step_on_params(state, batch, params)
+        return self.train_step_on_params(state, batch, params, generator)
 
     # One step on a device batch: the hot function of the host-streaming
     # path (JAX: train_step_direct).
@@ -191,7 +201,7 @@ class PretrainEngine:
         def body(idx):
             batch = images.index_select(0, idx)
             draws = self.sample_pair_params(generator, *batch.shape[:3])
-            return self._update(batch, draws), draws
+            return self._update(batch, draws, generator), draws
 
         return graphed_epoch(
             self.graphs, state, (images,), idx_mat, generator,
@@ -199,15 +209,17 @@ class PretrainEngine:
             body)
 
     @torch.no_grad()
-    def eval_step_on_views(self, v1: torch.Tensor, v2: torch.Tensor
+    def eval_step_on_views(self, v1: torch.Tensor, v2: torch.Tensor,
+                           generator: Optional[torch.Generator] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Eval-mode forwards of two NHWC views, NT-Xent forward only
-        (kernel B1f); returns (loss / accum_steps, accuracy %)."""
+        """Eval-mode forwards of two NHWC views (MC-dropout masks, if
+        any, from ``generator``), NT-Xent forward only (kernel B1f);
+        returns (loss / accum_steps, accuracy %)."""
         training = self.model.training
         self.model.eval()
         try:
-            _, z1 = self.model(_nchw(v1))
-            _, z2 = self.model(_nchw(v2))
+            _, z1 = self.model(_nchw(v1), generator)
+            _, z2 = self.model(_nchw(v2), generator)
         finally:
             self.model.train(training)
         loss, acc = self.loss_fn(z1, z2)
@@ -221,7 +233,7 @@ class PretrainEngine:
         params = self.sample_pair_params(generator, *batch.shape[:3])
         with torch.no_grad():
             views = self._views(batch, params)
-        return self.eval_step_on_views(*views)
+        return self.eval_step_on_views(*views, generator=generator)
 
     def eval_epoch(self, state: TrainState, images: torch.Tensor,
                    idx_mat: torch.Tensor, generator: torch.Generator

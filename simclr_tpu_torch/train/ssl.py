@@ -12,16 +12,20 @@ train_ssl.py:42 against models/ssl.py:7-12).
 One step: gather a uint8 batch and its labels from the device-resident
 dataset, the fine-tune view (random resized crop, flip, normalise; no
 colour distortion, so no kernel B2), a train-mode forward (the BN running
-statistics move), cross-entropy, backward and SGD. On a CUDA device an
-epoch replays one captured step per row of its index matrix
-(``train/common.py:graphed_epoch``), as the JAX epoch is one ``lax.scan``;
-on the CPU it is the eager loop. No kernel runs on the default path; with
-``bn_relu_fused`` the block BNs' backward is kernel B3.
+statistics move; MC-dropout masks, where the encoder has them, from the
+sampling generator), cross-entropy, backward and SGD. ``SupervisedEngine``
+also runs the supervised baseline's half-step (``train/supervised.py``).
+On a CUDA device an epoch replays one captured step per row of its index
+matrix (``train/common.py:graphed_epoch``), as the JAX epoch is one
+``lax.scan``; on the CPU it is the eager loop. No kernel runs on the
+fine-tune path's default; with ``bn_relu_fused`` the block BNs' backward
+is kernel B3. The supervised view's colour chain is kernel B2.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -34,8 +38,9 @@ from simclr_tpu_torch.data.pipeline import (
     DeviceDataset, class_weights, epoch_permutation, weighted_sample_indices)
 from simclr_tpu_torch.models.simclr import SimCLRFineTune
 from simclr_tpu_torch.ops.augment import (
-    CropParams, augment_fine_tune_apply, augment_test,
-    sample_fine_tune_params)
+    CropParams, SupervisedParams, augment_fine_tune_apply,
+    augment_supervised_apply, augment_test, sample_fine_tune_params,
+    sample_supervised_params)
 from simclr_tpu_torch.ops.losses import cross_entropy, top1_accuracy
 from simclr_tpu_torch.train.common import (
     CapturedStep, History, Metrics, TrainState, graphed_epoch, sgd_nesterov)
@@ -46,6 +51,7 @@ from simclr_tpu_torch.utils.device import resolve_device
 
 EvalBatch = Callable[[TrainState, torch.Tensor, torch.Tensor],
                      Tuple[torch.Tensor, torch.Tensor]]
+ViewDraws = Optional["CropParams | SupervisedParams"]
 
 
 def init_finetune(
@@ -81,17 +87,18 @@ def init_finetune(
 
 
 class SupervisedEngine:
-    """Train and eval steps and epochs of a classifier (``model(x) ->
-    logits``) over a device-resident dataset."""
+    """Train and eval steps and epochs of a classifier (``model(x,
+    generator) -> logits``) over a device-resident dataset. The view is
+    'fine_tune' (crop, flip, normalise), 'supervised' (flip, translate,
+    colour jitter and normalise through kernel B2) or 'none' (normalise).
+    The generator that draws the views also draws the model's MC-dropout
+    masks, after the view's draws; a model without dropout draws
+    nothing from it."""
 
     def __init__(self, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer, cfg: Config,
                  augment: str = "fine_tune"):
-        if augment == "supervised":
-            raise NotImplementedError(
-                "augment='supervised' needs augment_supervised, ported "
-                "with the supervised baseline (ROADMAP Queue A item 6)")
-        if augment not in ("fine_tune", "none"):
+        if augment not in ("fine_tune", "supervised", "none"):
             raise ValueError(f"unknown augment {augment!r} (expected "
                              "'fine_tune', 'supervised' or 'none')")
         self.model = model
@@ -102,26 +109,30 @@ class SupervisedEngine:
         self.graphs: Dict[tuple, CapturedStep] = {}
 
     def sample_params(self, generator: torch.Generator, n: int, in_h: int,
-                      in_w: int) -> Optional[CropParams]:
+                      in_w: int) -> ViewDraws:
         """The view's draws; None in 'none' mode, which draws nothing."""
         if self.augment == "none":
             return None
+        if self.augment == "supervised":
+            return sample_supervised_params(generator, n, in_h, in_w)
         return sample_fine_tune_params(generator, n, in_h, in_w,
                                        self.cfg.augment)
 
-    def _views(self, batch: torch.Tensor,
-               params: Optional[CropParams]) -> torch.Tensor:
+    def _views(self, batch: torch.Tensor, params: ViewDraws) -> torch.Tensor:
         if params is None:
             return augment_test(batch, self.cfg.dataset)
+        if isinstance(params, SupervisedParams):
+            return augment_supervised_apply(batch, params, self.cfg.dataset)
         return augment_fine_tune_apply(batch, params, self.cfg.dataset)
 
     def _update(self, batch: torch.Tensor, targets: torch.Tensor,
-                params: Optional[CropParams]) -> Metrics:
-        """Forward, cross-entropy, backward and SGD on a uint8 NHWC batch
-        with the given draws; returns (loss, accuracy %). Touches no host
-        state, so a CUDA graph can capture it."""
+                params: ViewDraws,
+                generator: Optional[torch.Generator]) -> Metrics:
+        """Forward, cross-entropy, backward and the optimizer's step on a
+        uint8 NHWC batch with the given draws; returns (loss, accuracy %).
+        Touches no host state, so a CUDA graph can capture it."""
         self.model.train()
-        logits = self.model(_nchw(self._views(batch, params)))
+        logits = self.model(_nchw(self._views(batch, params)), generator)
         loss = cross_entropy(logits, targets)
         acc = top1_accuracy(logits, targets)
         self.optimizer.zero_grad(set_to_none=True)
@@ -130,11 +141,12 @@ class SupervisedEngine:
         return loss.detach(), acc.detach()
 
     def train_step_on_params(self, state: TrainState, batch: torch.Tensor,
-                             targets: torch.Tensor,
-                             params: Optional[CropParams]):
-        """One step on a uint8 NHWC batch with given draws; returns
-        (state, (loss, accuracy %))."""
-        metrics = self._update(batch, targets, params)
+                             targets: torch.Tensor, params: ViewDraws,
+                             generator: Optional[torch.Generator] = None):
+        """One step on a uint8 NHWC batch with given view draws (and the
+        generator of the MC-dropout masks, where the model has them);
+        returns (state, (loss, accuracy %))."""
+        metrics = self._update(batch, targets, params, generator)
         state.step += 1
         return state, metrics
 
@@ -145,7 +157,7 @@ class SupervisedEngine:
         batch = images.index_select(0, idx)
         params = self.sample_params(generator, *batch.shape[:3])
         return self.train_step_on_params(
-            state, batch, labels.index_select(0, idx), params)
+            state, batch, labels.index_select(0, idx), params, generator)
 
     def train_epoch(self, state: TrainState, images: torch.Tensor,
                     labels: torch.Tensor, idx_mat: torch.Tensor,
@@ -158,7 +170,7 @@ class SupervisedEngine:
                 batch = images.index_select(0, idx)
                 params = self.sample_params(generator, *batch.shape[:3])
                 return self._update(batch, labels.index_select(0, idx),
-                                    params), params
+                                    params, generator), params
 
             return graphed_epoch(
                 self.graphs, state, (images, labels), idx_mat, generator,
@@ -175,17 +187,20 @@ class SupervisedEngine:
 
     @torch.no_grad()
     def eval_batch(self, state: TrainState, images: torch.Tensor,
-                   labels: torch.Tensor
+                   labels: torch.Tensor,
+                   generator: Optional[torch.Generator] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Eval-mode forward of ``state.model`` over the test view; returns
-        the mean NLL over the rows whose label is not negative (padding
-        rows carry -1, as on the JAX side) and their number correct, as
-        device scalars."""
+        """Eval-mode forward of ``state.model`` over the test view (its
+        MC-dropout masks, if any, from ``generator``); returns the mean
+        NLL over the rows whose label is not negative (padding rows carry
+        -1, as on the JAX side) and their number correct, as device
+        scalars."""
         model = state.model
         training = model.training
         model.eval()
         try:
-            logits = model(_nchw(augment_test(images, self.cfg.dataset)))
+            logits = model(_nchw(augment_test(images, self.cfg.dataset)),
+                           generator)
         finally:
             model.train(training)
         valid = labels >= 0
@@ -202,9 +217,9 @@ def build_supervised_epoch_fns(model: torch.nn.Module,
                                optimizer: torch.optim.Optimizer, cfg: Config,
                                augment: str = "fine_tune"):
     """(train_epoch, eval_batch) of a ``SupervisedEngine``, the JAX
-    function's pair. augment: 'fine_tune' (crop + flip, data.py:150-169)
-    or 'none' (plain normalise); 'supervised' raises NotImplementedError
-    until ``augment_supervised`` is ported."""
+    function's pair. augment: 'fine_tune' (crop + flip, data.py:150-169),
+    'supervised' (flip + translate + jitter, data.py:195-217) or 'none'
+    (plain normalise)."""
     engine = SupervisedEngine(model, optimizer, cfg, augment)
     return engine.train_epoch, engine.eval_batch
 
@@ -214,7 +229,8 @@ def evaluate_classifier(eval_batch: EvalBatch, state: TrainState,
                         ) -> Tuple[float, float]:
     """test_ssl parity (reference: model_utils.py:372-407): the mean of the
     batch losses and the accuracy % over every sample. The last batch is
-    ragged; no sample counts twice."""
+    ragged; no sample counts twice. A model with MC dropout needs an
+    ``eval_batch`` bound to its generator (``functools.partial``)."""
     losses, correct = [], 0
     for start in range(0, ds.n, batch_size):
         nll, corr = eval_batch(state, ds.images[start:start + batch_size],
@@ -264,6 +280,9 @@ def train_ssl(
                                             device=dev)
     engine = SupervisedEngine(model, optimizer, cfg, augment="fine_tune")
     gen = torch.Generator(device=dev)
+    # Evaluation draws its MC-dropout masks, if any, from the epoch's
+    # generator, after the epoch's own draws.
+    eval_batch = functools.partial(engine.eval_batch, generator=gen)
 
     use_weighted = tcfg.ssl_label_size < 1.0
     if use_weighted:
@@ -291,7 +310,7 @@ def train_ssl(
             f"Train Top 1 Accuracy: {accs[-1]:.3f}%")
 
         if val_ds is not None:
-            val_loss, val_acc = evaluate_classifier(engine.eval_batch, state,
+            val_loss, val_acc = evaluate_classifier(eval_batch, state,
                                                     val_ds)
             history.append("valid", val_loss, val_acc)
             if val_acc > best_acc:
@@ -313,7 +332,7 @@ def train_ssl(
 
     test_acc = None
     if test_ds is not None:
-        _, test_acc = evaluate_classifier(engine.eval_batch, state, test_ds)
+        _, test_acc = evaluate_classifier(eval_batch, state, test_ds)
         log(f"Got ({test_acc:.2f}%) correct on test")
     return FineTuneResult(state=state, history=history, best_acc=best_acc,
                           test_acc=test_acc, epoch_seconds=epoch_seconds)

@@ -44,7 +44,9 @@ def test_every_port_module_imports_without_jax():
                  "utils.visualizations", "scripts.pretrain",
                  "train.pretrain", "data.pipeline", "utils.msgpack",
                  "train.lin_eval", "train.ssl", "scripts.lin_eval",
-                 "scripts.train_ssl"):
+                 "scripts.train_ssl", "models.mine", "train.supervised",
+                 "train.mine", "scripts.train_supervised",
+                 "scripts.train_mine"):
         assert f"simclr_tpu_torch.{name}" in modules
     root = Path(simclr_tpu_torch.__file__).resolve().parents[1]
     result = subprocess.run(

@@ -174,7 +174,11 @@ def test_unported_flags_raise():
     for field, value in [("fold_bn_scales", True), ("bn12_shadow_stats", True),
                          ("relu_from_output", True),
                          ("conv_wgrad_fraction", 0.5),
-                         ("encoder", "dropout"), ("remat_stages", (0,))]:
+                         ("remat_stages", (0,))]:
         cfg = dataclasses.replace(ModelConfig(**SMALL), **{field: value})
         with pytest.raises(NotImplementedError):
             SimCLR(cfg)
+    # The MC-dropout encoder is ported; an unknown encoder is refused.
+    SimCLR(dataclasses.replace(ModelConfig(**SMALL), encoder="dropout"))
+    with pytest.raises(ValueError, match="unknown encoder"):
+        SimCLR(dataclasses.replace(ModelConfig(**SMALL), encoder="other"))

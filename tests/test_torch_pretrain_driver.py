@@ -356,11 +356,18 @@ def test_cli_help(capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--n_devices", "2"], "item 11"), (["--engine", "explicit"], "item 11"),
-    (["--accum_steps", "2"], "item 3"),
-    (["--encoder_model", "dropout"], "item 7")])
+    (["--accum_steps", "2"], "item 3")])
 def test_cli_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(flags + ["--device", "cpu"])
+
+
+def test_cli_takes_the_dropout_encoder():
+    """``--encoder_model dropout`` is ported: no refusal, and the config
+    carries it."""
+    args = cli.parse_args(["--encoder_model", "dropout"])
+    cli.refuse_unported(args)
+    assert cli.config_from_args(args).model.encoder == "dropout"
 
 
 def test_cli_flags_build_the_jax_scripts_config(monkeypatch):

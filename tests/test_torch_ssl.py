@@ -317,10 +317,20 @@ def test_evaluate_classifier_matches_jax_with_a_ragged_tail(oracle):
 
 
 def test_supervised_mode_waits_for_its_augmentation():
+    """The supervised view is ported: 'supervised' mode draws
+    ``SupervisedParams`` and trains on ``augment_supervised_apply``'s
+    views; an unknown mode is refused."""
     model = SimCLRFineTune(_config().model, 10)
     opt = tcommon.sgd_nesterov(model.parameters(), 0.02, 0.98)
-    with pytest.raises(NotImplementedError, match="augment_supervised"):
-        tssl.build_supervised_epoch_fns(model, opt, _config(), "supervised")
+    engine = tssl.SupervisedEngine(model, opt, _config(), "supervised")
+    draws = engine.sample_params(torch.Generator().manual_seed(0), 4, SIZE,
+                                 SIZE)
+    assert isinstance(draws, ta.SupervisedParams)
+    images = torch.from_numpy(synthetic_dataset(4, SIZE, seed=5)[0])
+    _, (loss, _) = engine.train_step_on_params(
+        tcommon.TrainState(model, opt), images,
+        torch.zeros(4, dtype=torch.int32), draws)
+    assert np.isfinite(float(loss))
     with pytest.raises(ValueError, match="unknown augment"):
         tssl.build_supervised_epoch_fns(model, opt, _config(), "other")
 
@@ -360,9 +370,12 @@ def test_init_finetune_grafts_either_export(tmp_path):
         group = opt.param_groups[0]
         assert (group["lr"], group["momentum"], group["nesterov"]) == (
             0.02, 0.98, True)
-    with pytest.raises(NotImplementedError, match="later PR"):
-        tssl.init_finetune(cfg.replace(model=dataclasses.replace(
-            cfg.model, encoder="dropout")), device="cpu")
+    # The MC-dropout encoder takes the same weights (dropout has none).
+    dropout, _, _ = tssl.init_finetune(
+        cfg.replace(model=dataclasses.replace(cfg.model, encoder="dropout")),
+        seed=7, pretrained_path=EXPORT, device="cpu")
+    assert dropout.f.mc_dropout
+    assert all(torch.equal(dropout.state_dict()[k], want[k]) for k in want)
 
 
 def test_train_ssl_stops_early_and_restores_the_best_parameters(
