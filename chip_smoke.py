@@ -74,12 +74,28 @@ Phases, each printed as one line with its result and wall time:
 12. fused_slice, fused_profile: phases 6 and 7 with
    ``ModelConfig(fuse_identity_blocks=True)``: the 12 identity blocks
    through B6f and B6b (12 launches of each a step).
-13. parity: width-16 models, the default and the bn_relu_fused one in
+13. optin_fold, optin_fold_profile, optin_wgrad_remat_accum,
+   optin_wgrad_remat_accum_profile, optin: phases 6 and 7 with
+   ``ModelConfig(fold_bn_scales=True)`` (the 12 identity blocks on
+   ``ops/foldconv.py``) and with ``conv_wgrad_fraction=0.25``,
+   ``bn12_shadow_stages=(0,)``, ``relu_from_output``, ``relu_barrier``,
+   ``remat_stages=(0,)`` and ``TrainConfig(accum_steps=2)`` (two
+   captures: one step accumulates, the other also steps Adam), B1 and
+   B2 as on every path; then replays against eager steps of a twin (the
+   draws bit for bit, an accumulating replay leaves the parameters bit
+   for bit, the optimizer steps within the graph phase's tolerance);
+   then one eager step from the same weights and views with cuDNN
+   deterministic: the folded path against the unfolded exact one (loss,
+   per-leaf gradient cosine, the stem's gradient norm) and remat against
+   none (loss, gradients, running statistics updated once, and what a
+   forward keeps for the backward with and without remat).
+14. parity: width-16 models, the default and the bn_relu_fused one in
    float32 and ones with ``conv64_pallas`` and ``winograd_conv2`` and with
-   ``fuse_identity_blocks`` in bf16, take two steps on the card (kernels)
-   and on the CPU (plain versions) from the same weights, batch and
+   ``fuse_identity_blocks`` in bf16, and the two optin configurations in
+   float32 (``stage_sizes=(2,1,1,1)``, three steps), take two steps on the card
+   (kernels) and on the CPU (plain versions) from the same weights, batch and
    augmentation draws; the losses must agree.
-14. graph: on the same four width-16 configurations, 3 replays of the
+15. graph: on the same four width-16 configurations, 3 replays of the
    captured step against 3 eager steps from the same weights, Adam state,
    generator state and rows: the draws bit for bit (and different from
    one replay to the next), the losses and parameters within stated
@@ -94,29 +110,29 @@ Phases, each printed as one line with its result and wall time:
    mode, batch 64, over a width-16 SimCLR with MC dropout; B2 three times
    a step) the same way: their view draws and the six dropout masks bit
    for bit, the masks different from one replay to the next.
-15. pretrain: ``pretrain()`` at full width on the default config, 4,096
+16. pretrain: ``pretrain()`` at full width on the default config, 4,096
    synthetic images (80/20 split), 2 epochs with a checkpoint after
    each, under torch.profiler (each epoch's seconds, steps/s, device
    busy share and peak memory); a run resumed from the first epoch's
    checkpoint must end where it did; the export must load back.
-16. lin_eval: ``linear_evaluation`` of that export at full width on the
+17. lin_eval: ``linear_evaluation`` of that export at full width on the
    3,277 / 819 split (features at batch 512, 40 float32 L-BFGS
    iterations at most): the loss falls from ln 10, all finite, the
    first 16 images' features within 1e-2 of the CPU's; extraction
    images/s, ms an L-BFGS iteration, top-1.
-17. ssl: ``train_ssl`` from the export (batch 64, 10% of the labels by
+18. ssl: ``train_ssl`` from the export (batch 64, 10% of the labels by
    weighted draws: 5 steps an epoch), 2 epochs, tested on the 819:
    ``f`` and ``g`` grafted, ``f`` moved and ``g`` not, a finite history;
    seconds an epoch, steps/s, the busy share of two replayed steps under
    the profiler, peak memory. Neither downstream path launches a kernel
    of the port (their counts are read and must be 0).
-18. supervised: ``train_supervised`` at full width (batch 64, two
+19. supervised: ``train_supervised`` at full width (batch 64, two
    half-steps a batch: 102 an epoch), 2 epochs, validated and tested on
    the 819: B2 once in each eager half-step and in the capture and no
    other kernel, a finite history, the best epoch's parameters restored
    bit for bit; seconds an epoch, half-steps/s, the busy share of two
    replayed half-steps under the profiler, peak memory.
-19. mine: ``train_mine_from_export`` on the export at batch 256 and
+20. mine: ``train_mine_from_export`` on the export at batch 256 and
    hidden width 512: ``repr`` mode with ``encoder='dropout'`` for 200
    steps (B2 three times a step), then ``orig`` mode without dropout for
    50 (twice a step; MineNet 5,120 wide), counted in the EMA's first
@@ -1549,7 +1565,8 @@ def _run_slice(torch, smi, cfg, expected):
     the step and replays it once; the timed call replays it. ``expected``
     maps a counter to the launches it must show a step besides
     ``_PER_STEP``. The wrappers count only where they launch: in the eager
-    steps and once in the capture, never in a replay."""
+    steps and once in each capture (two with gradient accumulation, one
+    that accumulates and one that also steps Adam), never in a replay."""
     from simclr_tpu_torch.data.datasets import synthetic_dataset
     from simclr_tpu_torch.data.pipeline import (
         DeviceDataset, epoch_permutation)
@@ -1564,6 +1581,7 @@ def _run_slice(torch, smi, cfg, expected):
     ds = DeviceDataset.from_numpy(images, labels, "cuda")
     model, state, opt = init_simclr(cfg, seed=0, device="cuda")
     engine = build_engine(cfg, model, opt)
+    captures = len(getattr(opt, "kinds", (None,)))
     gen = torch.Generator(device="cuda").manual_seed(0)
     idx_mat = torch.cat([epoch_permutation(gen, ds.n, batch)
                          for _ in range(2)])
@@ -1585,17 +1603,17 @@ def _run_slice(torch, smi, cfg, expected):
     losses, accs = losses.tolist(), accs.tolist()
     if not all(math.isfinite(v) for v in losses + accs):
         raise AssertionError(f"non-finite loss or accuracy: {losses}")
-    if launches != at_capture or len(engine.graphs) != 1:
+    if launches != at_capture or len(engine.graphs) != captures:
         raise AssertionError(f"a replay counted launches or captured again:"
                              f" {at_capture} then {launches}")
     if not all(launches[n] for n in expected):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
-    # WARMUP_STEPS eager steps and the capture, one step's launches each.
+    # WARMUP_STEPS eager steps and the captures, one step's launches each.
     for name, count in launches.items():
-        if count != expected.get(name, 0) * (warm + 1):
+        if count != expected.get(name, 0) * (warm + captures):
             raise AssertionError(f"{name}: {count} launches in {warm} eager "
-                                 f"steps and the capture, expected "
-                                 f"{expected.get(name, 0)} a step")
+                                 f"steps and {captures} capture(s), "
+                                 f"expected {expected.get(name, 0)} a step")
     if state.step != warm + 1 + steps or n_params != 23_500_352:
         raise AssertionError(f"step {state.step}, trunk params {n_params}")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1614,9 +1632,10 @@ def _run_slice(torch, smi, cfg, expected):
     del pair, z
     return {"launches": launches, "engine": engine, "state": state,
             "images": ds.images, "idx": idx_mat[row + 1:row + 3], "gen": gen,
-            "expected": expected,
+            "expected": expected, "ds": ds, "kept_gib": kept_gib,
             "summary": f"ResNet-50 ({n_params} trunk params), batch {batch},"
-                       f" {warm} eager steps, the capture and 1 replay in "
+                       f" {warm} eager steps, {captures} capture(s) and 1 "
+                       f"replay in "
                        f"{first_s:.2f} s, then {steps} replayed steps: "
                        f"losses {[round(v, 4) for v in losses]}, acc "
                        f"{[round(v, 2) for v in accs]}; "
@@ -1776,6 +1795,284 @@ def _release(torch, run):
     torch.cuda.empty_cache()
 
 
+# The opt-in configurations of the pretrain step at full width (the optin
+# phases): (name, ModelConfig overrides, TrainConfig overrides).
+_OPTIN = (
+    ("fold", dict(fold_bn_scales=True), {}),
+    ("wgrad_remat_accum", dict(conv_wgrad_fraction=0.25,
+                               bn12_shadow_stages=(0,),
+                               relu_from_output=True, relu_barrier=True,
+                               remat_stages=(0,)), dict(accum_steps=2)),
+)
+# Fold against the unfolded exact path on the card, one step of NT-Xent at
+# full width from the same weights and views, in float32 and in bf16
+# compute. In float32 the two are one function computed two ways:
+# per-leaf gradient cosine at least 0.999, as the JAX package checks its
+# folded path (foldconv.py:150-155). In bf16 no two roundings of this
+# network agree leaf by leaf at init: on an H100 this phase found the
+# unfolded bf16 gradient's cosine to its own float32 twin at 0.15 over
+# the whole gradient, the folded one's at 0.03, and fold against
+# unfolded in bf16 at 0.025 for one leaf (all printed below). So bf16 is
+# held to its loss and to the stem's gradient norm
+# (within 10% of the unfolded one's: the JAX package's open TPU fault was
+# a stem gradient of 1e-19 against 2.3, foldconv.py:150-163), and its
+# cosines are printed. The head's first bias is left out: a BN follows
+# it, so its gradient is zero in exact arithmetic and only noise. The
+# losses: float32 sums in another order; in bf16 the unfolded BN applies
+# in bf16 and the folded one in float32 before one cast, which moves an
+# activation by a bf16 step here and there, and the loss averages 1,024
+# rows.
+_FOLD_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2e-3}
+_FOLD_COS, _FOLD_STEM = 0.999, 0.1
+# Remat against no remat on the card with cuDNN deterministic: the
+# recompute runs the same kernels on the same inputs, so the two agree
+# bit for bit (printed); held to float32 noise all the same.
+_REMAT_LOSS_RTOL, _REMAT_GRAD_REL, _REMAT_STATS_ATOL = 1e-6, 1e-5, 1e-6
+
+
+def _optin_config(name):
+    from simclr_tpu_torch.config import Config, ModelConfig
+    _, model_over, train_over = next(o for o in _OPTIN if o[0] == name)
+    cfg = Config(model=ModelConfig(**model_over))
+    return cfg.replace(train=dataclasses.replace(cfg.train, **train_over))
+
+
+@phase("optin_fold")
+def optin_fold_phase(torch, smi):
+    # The 12 identity blocks fold (no kernel of theirs); B1 and B2 as on
+    # every path.
+    return _run_slice(torch, smi, _optin_config("fold"), {})
+
+
+@phase("optin_fold_profile")
+def optin_fold_profile_phase(torch, run):
+    """Two profiled replays, then 2 replays against eager steps."""
+    result = _profile(torch, run)
+    note = _optin_replays(torch, "fold", run, 2)
+    return {"summary": f"{result['summary']}; {note}"}
+
+
+@phase("optin_wgrad_remat_accum")
+def optin_accum_phase(torch, smi):
+    return _run_slice(torch, smi, _optin_config("wgrad_remat_accum"), {})
+
+
+@phase("optin_wgrad_remat_accum_profile")
+def optin_accum_profile_phase(torch, run):
+    """Two profiled replays, then 4 replays (two accumulation cycles)
+    against eager micro-steps."""
+    result = _profile(torch, run)
+    note = _optin_replays(torch, "wgrad_remat_accum", run, 4)
+    return {"summary": f"{result['summary']}; {note}"}
+
+
+def _optin_replays(torch, name, run, n_steps):
+    """The slice's captured step(s), replayed once a row for ``n_steps``
+    rows (each its own one-row epoch, under ``set_sync_debug_mode
+    ("error")``), against eager steps of a twin loaded with the model's
+    weights, optimizer state (with accumulation, the accumulator and its
+    count) and generator state, on the same rows: the draws bit for bit,
+    the losses within the graph phase's tolerance; with accumulation the
+    parameters after an accumulating replay bit for bit those before it,
+    and after each optimizer step within ``_GRAPH_PARAM_REL`` of the
+    twin's change."""
+    import copy
+    from simclr_tpu_torch.data.pipeline import epoch_permutation
+    from simclr_tpu_torch.train.pretrain import build_engine, init_simclr
+
+    engine, state, gen = run["engine"], run["state"], run["gen"]
+    images, cfg = run["images"], engine.cfg
+    batch = cfg.train.batch_size
+    model, opt = engine.model, engine.optimizer
+    idx = epoch_permutation(gen, images.shape[0], batch)[:n_steps]
+    twin, twin_state, twin_opt = init_simclr(cfg, seed=0, device="cuda")
+    twin.load_state_dict(model.state_dict())
+    twin_opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+    twin_gen = torch.Generator(device="cuda")
+    twin_gen.set_state(gen.get_state())
+    twin_engine = build_engine(cfg, twin, twin_opt)
+    accum = getattr(opt, "k", 1)
+    kinds, frozen, rels, losses = [], 0, [], []
+    start = [p.detach().clone() for p in model.parameters()]
+    for i in range(n_steps):
+        draws = twin_engine.sample_pair_params(twin_gen, batch, 32, 32)
+        p0 = [p.detach().clone() for p in model.parameters()]
+        kinds.append(getattr(opt, "next_kind", lambda: "step")())
+        twin_state, (le, _) = twin_engine.train_step_on_params(
+            twin_state, images.index_select(0, idx[i]), draws)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, (lr_, _) = engine.train_epoch(state, images,
+                                                 idx[i:i + 1], gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        rec = engine.graphs[next(k for k in engine.graphs
+                                 if k[1] in (kinds[-1], None))]
+        if not all(_draws_equal(torch, a, b)
+                   for a, b in zip(draws, rec.draws)):
+            raise AssertionError(f"{name}: replay {i} drew other view "
+                                 "parameters than the eager step")
+        losses.append((lr_.item(), le.item()))
+        if kinds[-1] == "accumulate":
+            if not all(torch.equal(p, q) for p, q in
+                       zip(model.parameters(), p0)):
+                raise AssertionError(f"{name}: an accumulating replay "
+                                     "moved the parameters")
+            frozen += 1
+        else:
+            rels.append(_rel_change(torch, model, twin, start))
+    loss_diff = max(abs(a - b) / abs(b) for a, b in losses)
+    rtol = _GRAPH_LOSS_RTOL[cfg.model.compute_dtype]
+    if not (loss_diff <= rtol and rels and max(rels) <= _GRAPH_PARAM_REL):
+        raise AssertionError(f"{name}: replayed/eager losses {losses}, "
+                             f"parameters {rels} of the change")
+    return (f"{name}: {n_steps} replays ({kinds}) against eager steps: "
+            f"draws identical, losses max rel {loss_diff:.1e} (tol {rtol})"
+            f", parameters unchanged bit for bit after {frozen} "
+            f"accumulating replays, {[f'{r:.1e}' for r in rels]} of the "
+            f"change after the optimizer steps (tol {_GRAPH_PARAM_REL}; "
+            f"accum_steps {accum})")
+
+
+def _cosine(torch, a, b):
+    return torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(),
+                                                 dim=0).item()
+
+
+def _fold_check(torch, cfg, views):
+    """``cfg``'s model with and without ``fold_bn_scales``, both with the
+    exact BN gradient, one step from the same weights and views in float32
+    and in bf16 compute (the tolerances' note above)."""
+    grads, losses, weights = {}, {}, None
+    dts = ("float32", "bfloat16")
+    for dt in dts:
+        for fold in (False, True):
+            c = cfg.replace(model=dataclasses.replace(
+                cfg.model, fold_bn_scales=fold, bn_grad_mode="exact",
+                compute_dtype=dt, bn_dtype=dt))
+            loss, g, _, _, w = _one_step_grads(torch, c, views, weights)
+            weights = weights or w
+            grads[dt, fold], losses[dt, fold] = g, loss
+    names = [n for n in grads["float32", False] if n != "g.linear0.bias"]
+    leaf = {dt: {n: _cosine(torch, grads[dt, True][n], grads[dt, False][n])
+                 for n in names} for dt in dts}
+    worst = {dt: sorted(v, key=v.get)[:3] for dt, v in leaf.items()}
+    loss_rel = {dt: abs(losses[dt, True] - losses[dt, False])
+                / abs(losses[dt, False]) for dt in dts}
+    stem = {k: g["f.stem_conv.weight"].norm().item()
+            for k, g in grads.items()}
+    stem_rel = {dt: abs(stem[dt, True] / stem[dt, False] - 1) for dt in dts}
+    ref = torch.cat([grads["float32", False][n].flatten() for n in names])
+    to_f32 = {fold: _cosine(torch, torch.cat(
+        [grads["bfloat16", fold][n].flatten() for n in names]), ref)
+        for fold in (False, True)}
+    text = "fold vs unfolded exact (same weights and views): " + "; ".join(
+        f"{dt}: loss {losses[dt, True]:.6f} vs {losses[dt, False]:.6f} "
+        f"(rel {loss_rel[dt]:.1e}, tol {_FOLD_LOSS_RTOL[dt]}), per-leaf "
+        f"gradient cosine min "
+        f"{[(n, round(leaf[dt][n], 6)) for n in worst[dt]]}"
+        f"{f' (tol {_FOLD_COS})' if dt == 'float32' else ''}, median "
+        f"{statistics.median(leaf[dt].values()):.6f}, stem gradient norm "
+        f"{stem[dt, True]:.4f} vs {stem[dt, False]:.4f} (rel "
+        f"{stem_rel[dt]:.1e}, tol {_FOLD_STEM})" for dt in dts) + (
+        f"; the bf16 gradient's cosine to the float32 exact one "
+        f"{to_f32[False]:.4f} unfolded, {to_f32[True]:.4f} folded")
+    if not (all(loss_rel[dt] <= _FOLD_LOSS_RTOL[dt]
+                and stem_rel[dt] <= _FOLD_STEM for dt in dts)
+            and leaf["float32"][worst["float32"][0]] >= _FOLD_COS):
+        raise AssertionError(text)
+    return text
+
+
+def _one_step_grads(torch, cfg, views, state_dict=None):
+    """One eager forward and backward of ``cfg``'s model (seed 0, or
+    ``state_dict``) on the NHWC views at full width, no optimizer step:
+    (loss, {name: gradient}, {name: buffer after}, GiB the forward kept
+    for the backward, the state_dict before)."""
+    from simclr_tpu_torch.train.pretrain import (
+        _forward_pair, build_engine, init_simclr)
+    model, _, opt = init_simclr(cfg, seed=0, device="cuda")
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    before = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    engine = build_engine(cfg, model, opt)
+    model.train()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    z1, z2 = _forward_pair(model, *views)
+    torch.cuda.synchronize()
+    kept = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    loss, _ = engine.loss_fn(z1, z2)
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()}
+    bufs = {n: b.detach().clone() for n, b in model.named_buffers()}
+    return loss.item(), grads, bufs, kept, before
+
+
+@phase("optin")
+def optin_phase(torch):
+    """The optin configurations' gradient checks at full width (ResNet-50,
+    batch 512 = 1,024 images, one eager step from the same weights and
+    views, cuDNN deterministic): the folded path against the unfolded
+    exact path in float32 and in bf16 (``_fold_check``), and remat
+    against no remat in bf16."""
+    from simclr_tpu_torch.data.datasets import synthetic_dataset
+    from simclr_tpu_torch.ops.augment import (
+        augment_train_apply, sample_view_params)
+    notes = []
+    cfg = _optin_config("fold")
+    batch = cfg.train.batch_size
+    images = torch.from_numpy(synthetic_dataset(batch, 32, seed=5)[0]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    with torch.no_grad():
+        views = tuple(
+            augment_train_apply(images, sample_view_params(
+                gen, batch, 32, 32, cfg.augment), cfg.dataset)
+            for _ in range(2))
+    torch.backends.cudnn.deterministic = True
+    try:
+        notes.append(_fold_check(torch, cfg, views))
+        gc.collect()
+        acfg = _optin_config("wgrad_remat_accum")
+        plain = acfg.replace(model=dataclasses.replace(acfg.model,
+                                                       remat_stages=()))
+        lp, gp, bp, kept_plain, weights = _one_step_grads(torch, plain,
+                                                          views)
+        lr_, gr, br, kept_remat, _ = _one_step_grads(torch, acfg, views,
+                                                     weights)
+        bits = (lr_ == lp and all(torch.equal(gr[n], gp[n]) for n in gp)
+                and all(torch.equal(br[n], bp[n]) for n in bp))
+        moved = all(not torch.equal(br[n], weights[n]) for n in br
+                    if n.endswith("running_mean"))
+        grad_rel = max(((gr[n] - gp[n]).norm() / gp[n].norm().clamp_min(
+            1e-30)).item() for n in gp)
+        stats_err = max((br[n].float() - bp[n].float()).abs().max().item()
+                        for n in bp)
+        if not (abs(lr_ - lp) <= _REMAT_LOSS_RTOL * abs(lp)
+                and grad_rel <= _REMAT_GRAD_REL
+                and stats_err <= _REMAT_STATS_ATOL and moved):
+            raise AssertionError(f"remat vs none: loss {lr_} vs {lp}, "
+                                 f"gradients {grad_rel:.2e}, running "
+                                 f"statistics {stats_err:.2e}, every "
+                                 f"running mean moved: {moved}")
+        del weights
+        notes.append(f"remat_stages=(0,) vs none (wgrad_remat_accum's "
+                     f"model, same weights and views): bit-identical "
+                     f"{bits}; loss {lr_:.6f} vs {lp:.6f}, gradients "
+                     f"{grad_rel:.1e} in relative norm at worst, running "
+                     f"statistics {stats_err:.1e} (updated once: equal to "
+                     f"the no-remat step's); kept by the forward "
+                     f"{kept_remat:.2f} GiB with remat vs {kept_plain:.2f} "
+                     f"GiB without")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return {"summary": "; ".join(notes)}
+
+
+
 # Parity configurations: (name, ModelConfig overrides, tolerance on the
 # losses' relative difference, kernels that must have run on the card).
 _PARITY = (
@@ -1802,6 +2099,20 @@ _PARITY = (
 )
 
 
+# The optin configurations at width 16 in float32 (stage_sizes (2,1,1,1):
+# layer1_1 is an identity block, so it folds), with their TrainConfig
+# overrides; three steps, so that with accumulation over two the third
+# follows an Adam step. The tolerance as for "default".
+_OPTIN_PARITY = (
+    ("fold", dict(compute_dtype="float32", bn_dtype="float32",
+                  stage_sizes=(2, 1, 1, 1), fold_bn_scales=True), 1e-3, (),
+     {}),
+    ("wgrad_remat_accum", dict(compute_dtype="float32", bn_dtype="float32",
+                               stage_sizes=(2, 1, 1, 1), **_OPTIN[1][1]),
+     1e-3, (), _OPTIN[1][2]),
+)
+
+
 @phase("parity")
 def parity_phase(torch):
     from simclr_tpu_torch.config import Config, ModelConfig
@@ -1811,14 +2122,14 @@ def parity_phase(torch):
 
     images, _ = synthetic_dataset(40, img_size=32, seed=1)
     notes = []
-    for name, over, tol, kernels in _PARITY:
+    for name, over, tol, kernels, *train in _PARITY + _OPTIN_PARITY:
         small = dict(feature_dim=512, stage_sizes=(1, 1, 1, 1), width=16)
         cfg = Config(model=ModelConfig(**{**small, **over}))
-        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
-                                                    batch_size=40))
+        cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, batch_size=40, **(train[0] if train else {})))
         gen = torch.Generator().manual_seed(2)
         draws = [tuple(sample_view_params(gen, 40, 32, 32, cfg.augment)
-                       for _ in range(2)) for _ in range(2)]
+                       for _ in range(2)) for _ in range(3 if train else 2)]
         result = {}
         for dev in ("cuda", "cpu"):
             model, state, opt = init_simclr(cfg, seed=0, device=dev)
@@ -2832,6 +3143,13 @@ def main() -> int:
     fused_profile_phase(torch, fsl)
     fused_launches = fsl["launches"]
     _release(torch, fsl)
+    osl = optin_fold_phase(torch, info["smi"])
+    optin_fold_profile_phase(torch, osl)
+    _release(torch, osl)
+    osl = optin_accum_phase(torch, info["smi"])
+    optin_accum_profile_phase(torch, osl)
+    _release(torch, osl)
+    optin_phase(torch)
     parity_phase(torch)
     graph_phase(torch)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")

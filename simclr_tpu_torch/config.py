@@ -2,8 +2,8 @@
 
 The port's own copy of ``simclr_tpu/config.py``: the same frozen dataclass
 tree with the same field names and defaults, so one JSON round-trips between
-the two packages. Kernel flags whose kernels are not ported yet keep their
-names and defaults; the model raises ``NotImplementedError`` when one is set.
+the two packages. Every model flag of the JAX package selects its path in
+the port too (``models/simclr.py``).
 
 Replaces the reference's single JSON blob (reference: utils/configs.json:1-39)
 that is re-loaded at import time by three different modules
@@ -201,7 +201,7 @@ class ModelConfig:
     # than the 1.34 ms relu pass they delete, so the default stays ().
     bn12_shadow_stages: tuple = ()
     # Subset weight gradients for the trunk convs (ops/subset_wgrad.py):
-    # each conv's dw is contracted over a centered ceil(fraction*2N)-row
+    # each conv's dw is contracted over a centered floor(fraction*2N)-row
     # slice of the batch (min 64 rows; the slice spans both augmentation
     # views) and scaled 2N/k; dx stays exact, so — unlike the removed
     # round-3 subset-BN-backward — the estimator noise never enters the

@@ -1,10 +1,10 @@
 """Batch normalisation with subset statistics.
 
-Counterpart of ``SubsetBatchNorm``, ``SubsetBNAct`` and ``FoldedBatchNorm``
-in ``simclr_tpu/models/norm.py``: the batch statistics come from the leading
-k = min(max(int(n * fraction), 64), n) rows of the batch (shuffled
-upstream, so the subset is uniform), or from ``x_subset`` when the caller
-recomputes those rows itself. Inputs are (N, C) or (N, C, H, W); the
+Counterpart of ``SubsetBatchNorm``, ``SubsetBNAct``, ``FoldedBatchNorm``
+and ``BNScaleBias`` in ``simclr_tpu/models/norm.py``: the batch statistics
+come from the leading k = min(max(int(n * fraction), 64), n) rows of the batch
+(shuffled upstream, so the subset is uniform), or from ``x_subset`` when the
+caller recomputes those rows itself. Inputs are (N, C) or (N, C, H, W); the
 channel axis is 1.
 
 Parameters and buffers are ``weight``, ``bias``, ``running_mean`` and
@@ -12,6 +12,13 @@ Parameters and buffers are ``weight``, ``bias``, ``running_mean`` and
 (new = 0.9 old + 0.1 batch, torch's momentum 0.1), and the running variance
 takes the unbiased m/(m-1) estimate of the subset, m being the elements
 reduced per channel.
+
+Remat (``models/resnet.py``'s checkpointed blocks) runs a block's forward
+a second time in the backward. flax's ``nn.remat`` neither updates the
+running statistics twice nor shifts the recompute's one-pass statistics
+by the updated mean; ``RunningStats`` keeps that so here: while a block's
+wrapper marks the recompute, ``shift()`` gives the value the forward read
+and ``update_running`` writes nothing.
 """
 
 from __future__ import annotations
@@ -23,7 +30,9 @@ import torch.nn.functional as F
 from simclr_tpu_torch.ops import subset_bn
 from simclr_tpu_torch.ops.kernels import bn_relu
 
-GRAD_MODES = ("exact", "subset_st")
+# 'subset_st_nomean' and 'subset_st_w' are the JAX package's perf probes,
+# not trainable modes (simclr_tpu/models/norm.py:204-213, 252-264).
+GRAD_MODES = ("exact", "subset_st", "subset_st_nomean", "subset_st_w")
 ST_SURROGATES = ("affine", "pad")
 
 
@@ -51,7 +60,38 @@ def _update_running(bn: nn.Module, mean: torch.Tensor, var: torch.Tensor,
                              + (1.0 - bn.momentum) * unbiased)
 
 
-class SubsetBatchNorm(nn.Module):
+class RunningStats(nn.Module):
+    """Base of the BNs: running mean and variance with flax's momentum.
+
+    ``remat_phase`` is None outside remat; a checkpointed block sets it to
+    'forward' around its forward and 'recompute' around the backward's
+    rerun. ``shift()`` is the running mean before this step's update (the
+    one-pass statistics' shift): a copy, which the forward keeps and the
+    recompute reads back. ``update_running`` writes nothing in the
+    recompute, so the statistics move once a step."""
+
+    remat_phase = None
+    _kept_shift = None
+
+    def _stats_buffers(self, features: int) -> None:
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def shift(self) -> torch.Tensor:
+        if self.remat_phase == "recompute":
+            return self._kept_shift
+        s = self.running_mean.clone()
+        if self.remat_phase == "forward":
+            self._kept_shift = s
+        return s
+
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor,
+                       m: int) -> None:
+        if self.remat_phase != "recompute":
+            _update_running(self, mean, var, m)
+
+
+class SubsetBatchNorm(RunningStats):
     """BatchNorm whose training statistics come from the leading rows.
 
     ``grad_mode='exact'`` differentiates the subset-statistics forward.
@@ -65,6 +105,12 @@ class SubsetBatchNorm(nn.Module):
     used when ``x_subset`` is given). Both give the same values and
     gradients.
 
+    Two perf probes of the JAX package, not trainable modes, share the
+    forward values: ``'subset_st_nomean'`` also detaches the mean (the
+    per-channel common mode leaks into dx; it collapsed training on the
+    JAX side), and ``'subset_st_w'`` always takes the surrogate over all n
+    rows weighted by an iota mask, never the affine or pad form.
+
     ``fused_vjp=True`` takes precedence over ``grad_mode``: training runs
     through ``ops.subset_bn.subset_bn_apply``, the same forward values with
     the exact backward in closed form (statistics from x[:k] only).
@@ -77,8 +123,7 @@ class SubsetBatchNorm(nn.Module):
                  fused_vjp: bool = False):
         super().__init__()
         if grad_mode not in GRAD_MODES:
-            raise NotImplementedError(
-                f"grad_mode {grad_mode!r} is ported in a later PR")
+            raise ValueError(f"unknown grad_mode {grad_mode!r}")
         if st_surrogate not in ST_SURROGATES:
             raise ValueError(f"unknown st_surrogate {st_surrogate!r}")
         self.momentum = momentum
@@ -91,8 +136,7 @@ class SubsetBatchNorm(nn.Module):
         self.fused_vjp = fused_vjp
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+        self._stats_buffers(features)
 
     def forward(self, x: torch.Tensor, x_subset=None) -> torch.Tensor:
         """``x_subset``, when given, equals ``x[:k]`` mathematically (e.g.
@@ -112,10 +156,9 @@ class SubsetBatchNorm(nn.Module):
                                  "x_subset is not supported")
             k = stats_rows(n, self.stats_fraction, self.min_stats_samples)
             y, mean, var = subset_bn.subset_bn_apply(
-                x, self.weight, self.bias, self.running_mean.clone(), k,
-                self.eps, dt)
-            _update_running(self, mean, var,
-                            subset_bn.elems_per_channel(x.shape, k))
+                x, self.weight, self.bias, self.shift(), k, self.eps, dt)
+            self.update_running(mean, var,
+                                subset_bn.elems_per_channel(x.shape, k))
             return y
         if x_subset is not None:
             k, xs = x_subset.shape[0], x_subset
@@ -124,9 +167,9 @@ class SubsetBatchNorm(nn.Module):
             xs = x
         # One-pass variance around the running mean, a free shift that
         # keeps E[d^2] - E[d]^2 well conditioned in float32.
-        mean, var = subset_bn.bn_stats(xs, self.running_mean.clone(), k)
-        _update_running(self, mean, var,
-                        subset_bn.elems_per_channel(xs.shape, k))
+        mean, var = subset_bn.bn_stats(xs, self.shift(), k)
+        self.update_running(mean, var,
+                            subset_bn.elems_per_channel(xs.shape, k))
         if self.grad_mode == "exact":
             return subset_bn.bn_apply(x, self.weight, self.bias, mean, var,
                                       self.eps, dt)
@@ -137,15 +180,24 @@ class SubsetBatchNorm(nn.Module):
         mean_dt = mean.to(dt).view(cshape)
         rsig_dt = torch.rsqrt(var + self.eps).to(dt).view(cshape)
         sg = torch.Tensor.detach
+        mean_b = sg(mean_dt) if self.grad_mode == "subset_st_nomean" \
+            else mean_dt
         est = subset_scale(n, k, dt, x.device)
-        if self.st_surrogate == "affine" and x_subset is None:
+        if (self.st_surrogate == "affine" and x_subset is None
+                and self.grad_mode != "subset_st_w"):
             rows = (torch.arange(n, device=x.device) < k).to(dt) * est
             me = rows.view((n,) + (1,) * (x.dim() - 1))
             s_row = sg(rsig_dt * scale_dt) + me * (
                 sg(rsig_dt) * (scale_dt - sg(scale_dt)))
             b_row = sg(bias_dt) + me * (bias_dt - sg(bias_dt))
-            return (x.to(dt) - mean_dt) * s_row + b_row
-        y = (x.to(dt) - mean_dt) * sg(rsig_dt * scale_dt) + sg(bias_dt)
+            return (x.to(dt) - mean_b) * s_row + b_row
+        y = (x.to(dt) - mean_b) * sg(rsig_dt * scale_dt) + sg(bias_dt)
+        if self.grad_mode == "subset_st_w":
+            w = (torch.arange(n, device=x.device) < k).to(dt).view(
+                (n,) + (1,) * (x.dim() - 1))
+            xhat = (x.to(dt) - sg(mean_dt)) * sg(rsig_dt)
+            return y + (xhat * (scale_dt - sg(scale_dt))
+                        + (bias_dt - sg(bias_dt))) * (w * est)
         xk = (x_subset if x_subset is not None else x[:k]).to(dt)
         xhat_k = (xk - sg(mean_dt)) * sg(rsig_dt)
         sur = (xhat_k * (scale_dt - sg(scale_dt))
@@ -153,7 +205,7 @@ class SubsetBatchNorm(nn.Module):
         return y + F.pad(sur, (0, 0) * (x.dim() - 1) + (0, n - k))
 
 
-class SubsetBNAct(nn.Module):
+class SubsetBNAct(RunningStats):
     """Subset-statistics BN fused with the activation around it. ``mode``:
     'relu' (bn1/bn2), 'add_relu' (bn3 plus the residual, given as
     ``skip``), 'none' (the downsample BN). Same parameters and buffers as
@@ -165,14 +217,16 @@ class SubsetBNAct(nn.Module):
     B3 (``ops/kernels/bn_relu.py``), whatever the model's ``bn_grad_mode``.
     ``impl`` 'xla' or 'xla_mask' selects the plain version of the one-pass
     backward, an explicit choice and never a fallback. With 'pallas' CUDA
-    tensors go through the kernel or raise.
+    tensors go through the kernel or raise. ``fused=False`` (JAX's
+    ``SubsetBNAct.fused``) always takes autograd of the plain math
+    instead, never kernel B3.
     """
 
     def __init__(self, features: int, *, mode: str = "relu",
                  momentum: float = 0.9, eps: float = 1e-5,
                  dtype: torch.dtype = torch.bfloat16,
                  stats_fraction: float = 0.25, min_stats_samples: int = 64,
-                 impl: str = "pallas"):
+                 impl: str = "pallas", fused: bool = True):
         super().__init__()
         if mode not in bn_relu.MODES:
             raise ValueError(f"unknown mode {mode!r}")
@@ -185,10 +239,10 @@ class SubsetBNAct(nn.Module):
         self.stats_fraction = stats_fraction
         self.min_stats_samples = min_stats_samples
         self.impl = impl
+        self.fused = fused
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+        self._stats_buffers(features)
 
     def _act(self, y: torch.Tensor, skip) -> torch.Tensor:
         if self.mode == "add_relu":
@@ -204,19 +258,23 @@ class SubsetBNAct(nn.Module):
                 self.running_var, self.eps, self.dtype), skip)
         k = stats_rows(x.shape[0], self.stats_fraction,
                        self.min_stats_samples)
-        args = (x,) if skip is None else (x, skip)
-        op = {"relu": bn_relu.subset_bn_relu,
-              "add_relu": bn_relu.subset_bn_add_relu,
-              "none": bn_relu.subset_bn_only}[self.mode]
-        y, mean, var = op(*args, self.weight, self.bias,
-                          self.running_mean.clone(), k, self.eps, self.dtype,
-                          self.impl)
-        _update_running(self, mean, var,
-                        subset_bn.elems_per_channel(x.shape, k))
+        if self.fused:
+            args = (x,) if skip is None else (x, skip)
+            op = {"relu": bn_relu.subset_bn_relu,
+                  "add_relu": bn_relu.subset_bn_add_relu,
+                  "none": bn_relu.subset_bn_only}[self.mode]
+            y, mean, var = op(*args, self.weight, self.bias, self.shift(), k,
+                              self.eps, self.dtype, self.impl)
+        else:
+            mean, var = subset_bn.bn_stats(x, self.shift(), k)
+            y = self._act(subset_bn.bn_apply(x, self.weight, self.bias, mean,
+                                             var, self.eps, self.dtype), skip)
+        self.update_running(mean, var,
+                            subset_bn.elems_per_channel(x.shape, k))
         return y
 
 
-class FoldedBatchNorm(nn.Module):
+class FoldedBatchNorm(RunningStats):
     """BatchNorm that returns the folded per-channel affines (A, B) in
     float32, normalize(y) == y * A + B with A = weight * rsqrt(var + eps)
     and B = bias - mean * A, for the fused identity bottleneck
@@ -238,17 +296,37 @@ class FoldedBatchNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+        self._stats_buffers(features)
 
     def forward(self, y_subset=None):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
             k = y_subset.shape[0]
-            mean, var = subset_bn.bn_stats(y_subset,
-                                           self.running_mean.clone(), k)
-            _update_running(self, mean, var,
-                            subset_bn.elems_per_channel(y_subset.shape, k))
+            mean, var = subset_bn.bn_stats(y_subset, self.shift(), k)
+            self.update_running(
+                mean, var, subset_bn.elems_per_channel(y_subset.shape, k))
         a = self.weight * torch.rsqrt(var + self.eps)
         return a, self.bias - mean * a
+
+
+class BNScaleBias(RunningStats):
+    """Parameters and running statistics of a BN whose statistics are
+    computed outside it, by ``ops.foldconv.conv_subset_bn`` (the
+    weight-folded identity blocks). A call with no arguments returns
+    (weight, bias, running_mean, running_var); a call with (mean, var, m)
+    first writes the flax-momentum running update, the variance unbiased
+    by m/(m-1) (m elements reduced per channel). Same parameters and
+    buffers as ``SubsetBatchNorm``, so the two interchange weights."""
+
+    def __init__(self, features: int, *, momentum: float = 0.9):
+        super().__init__()
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self._stats_buffers(features)
+
+    def forward(self, mean=None, var=None, m: int = 1):
+        if mean is not None:
+            self.update_running(mean, var, m)
+        return self.weight, self.bias, self.running_mean, self.running_var

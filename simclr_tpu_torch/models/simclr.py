@@ -4,16 +4,19 @@ Counterpart of ``simclr_tpu/models/simclr.py``. The projection head is
 ``num_proj_layers - 1`` blocks of Linear(bias) -> BN -> ReLU, then a
 bias-free Linear -> BN (reference: models/simclr.py:27-41).
 
-The default path of ``ModelConfig`` is ported, and with it
-``bn_relu_fused`` (the block BNs as ``SubsetBNAct``, backward through
-kernel B3), ``bn_fused_vjp``, ``winograd_conv2`` (kernel B5),
+Every ``ModelConfig`` the JAX package accepts builds here: the default
+path, ``bn_relu_fused`` (the block BNs as ``SubsetBNAct``, backward
+through kernel B3), ``bn_fused_vjp``, ``winograd_conv2`` (kernel B5),
 ``conv64_pallas`` (kernel B4), ``fuse_identity_blocks`` with
-``fuse_min_width`` (kernels B6f/B6b) and ``encoder='dropout'`` (MC dropout
+``fuse_min_width`` (kernels B6f/B6b), ``fold_bn_scales``, the bn1/bn2
+shadow statistics, ``conv_wgrad_fraction``, ``remat_stages``, the
+``bn_grad_mode`` probes, ``relu_from_output`` and ``relu_barrier`` (no
+effect here, ``models/resnet.py``) and ``encoder='dropout'`` (MC dropout
 after the stem, each stage and each hidden layer of the head, masks drawn
-from the generator passed to ``forward``); the ``*_interpret`` twins are
-unused (on the CPU the kernel wrappers run their plain versions). A flag
-that selects another path (the folded blocks, ...) raises
-``NotImplementedError`` rather than quietly running the default.
+from the generator passed to ``forward``). The ``*_interpret`` twins are
+unused (on the CPU the kernel wrappers run their plain versions). The
+auto (None) flags resolve to False, as ``init_simclr`` resolves them on
+one device.
 """
 
 from __future__ import annotations
@@ -25,35 +28,22 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from simclr_tpu_torch.config import ModelConfig
-from simclr_tpu_torch.models.norm import SubsetBatchNorm
+from simclr_tpu_torch.models.norm import (
+    GRAD_MODES, ST_SURROGATES, SubsetBatchNorm)
 from simclr_tpu_torch.models.resnet import Linear, MCDropout, ResNetEncoder
-
-# ModelConfig fields of paths not ported yet, with the value that keeps
-# them off. None counts as off: init_simclr resolves it to False.
-_UNPORTED_OFF = {
-    "fold_bn_scales": False,
-    "relu_barrier": False,
-    "bn12_shadow_stats": False,
-    "bn12_shadow_stages": (),
-    "conv_wgrad_fraction": 1.0,
-    "relu_from_output": False,
-    "remat_stages": (),
-}
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a ModelConfig path not ported yet."""
+    """Raise ValueError for an encoder, BN gradient mode or surrogate that
+    no package knows."""
     if cfg.encoder not in ("no_dropout", "dropout"):
         raise ValueError(f"unknown encoder {cfg.encoder!r} (expected "
                          "'no_dropout' or 'dropout')")
-    for field, off in _UNPORTED_OFF.items():
-        value = getattr(cfg, field)
-        if isinstance(off, tuple):
-            value = tuple(value)
-        if value is None or value == off:
-            continue
-        raise NotImplementedError(
-            f"ModelConfig.{field}={value!r} is ported in a later PR")
+    for mode in (cfg.bn_grad_mode, cfg.head_bn_grad_mode):
+        if mode is not None and mode not in GRAD_MODES:
+            raise ValueError(f"unknown bn_grad_mode {mode!r}")
+    if cfg.bn_st_surrogate not in ST_SURROGATES:
+        raise ValueError(f"unknown bn_st_surrogate {cfg.bn_st_surrogate!r}")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -81,6 +71,14 @@ def _make_encoder(cfg: ModelConfig,
         conv64_pallas=bool(cfg.conv64_pallas),
         fuse_identity_blocks=bool(cfg.fuse_identity_blocks),
         fuse_min_width=cfg.fuse_min_width,
+        fold_bn_scales=bool(cfg.fold_bn_scales),
+        relu_barrier=cfg.relu_barrier,
+        bn12_shadow_stats=cfg.bn12_shadow_stats,
+        bn12_shadow_stages=tuple(cfg.bn12_shadow_stages),
+        relu_from_output=cfg.relu_from_output,
+        conv_wgrad_fraction=cfg.conv_wgrad_fraction,
+        conv_wgrad_min_rows=cfg.conv_wgrad_min_rows,
+        remat_stages=tuple(cfg.remat_stages),
         mc_dropout=cfg.encoder == "dropout",
         drop_prob=cfg.drop_prob,
         generator=generator,

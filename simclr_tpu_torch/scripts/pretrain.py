@@ -6,9 +6,10 @@ versions). Run from the repository root:
 
     python -m simclr_tpu_torch.scripts.pretrain --dataset cifar10
 
-Data parallelism (``--n_devices`` above 1, ``--engine explicit``) and
-gradient accumulation (``--accum_steps`` above 1) are not ported yet and
-raise NotImplementedError naming their ROADMAP item.
+``--accum_steps`` above 1 accumulates the gradients of that many
+micro-steps before each Adam step. Data parallelism (``--n_devices``
+above 1, ``--engine explicit``) is not ported yet and raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -77,10 +78,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
         raise NotImplementedError(
             "--engine explicit: the shard_map engine is ROADMAP Queue A "
             "item 11")
-    if args.accum_steps > 1:
-        raise NotImplementedError(
-            "--accum_steps > 1: gradient accumulation is ROADMAP Queue A "
-            "item 3")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:

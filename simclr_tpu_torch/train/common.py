@@ -21,6 +21,11 @@ graph and replays it for every row of the epoch's index matrix:
     state (Adam's moments, SGD's momentum buffers, which ``step()``
     creates on its first call). They are real steps of the epoch, which
     takes each row exactly once.
+  * with gradient accumulation (``GradAccumulation``) two steps are
+    captured, one that accumulates and one that also steps the optimizer
+    and clears the accumulator; the host picks one for each row from the
+    micro-step count, and the warm-up goes on until the optimizer has
+    stepped once.
 
 A capture that fails raises; a CUDA epoch never falls back to the eager
 loop.
@@ -28,9 +33,11 @@ loop.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import (
-    Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple)
+    Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence,
+    Tuple)
 
 import torch
 import torch.nn as nn
@@ -77,15 +84,123 @@ def sgd_nesterov(params: Iterable[torch.nn.Parameter], lr: float,
                            nesterov=True)
 
 
+class GradAccumulation:
+    """Gradient accumulation over ``k`` micro-steps around an optimizer,
+    as the JAX side's ``optax.MultiSteps`` (``train/common.py:61-70``;
+    reference: utils/model_utils.py:116-123).
+
+    Each ``step()`` folds the parameters' gradients into a running mean
+    held in static buffers the optimizer does not own, with optax's
+    recurrence ``acc + (g - acc) / (i + 1)`` (i the micro-step within the
+    cycle, 0-based); the k-th also copies the mean into the gradients,
+    steps the optimizer (Adam's L2 term on the parameters at that moment,
+    its step count advancing only then) and clears the accumulator.
+    Between optimizer steps the parameters do not change.
+
+    The micro-step count is kept twice: on the host (``mini``), which
+    picks the kind of the next step, and on the device (``count``), which
+    the running mean divides by, so that a CUDA graph of an accumulating
+    step serves every i. ``state_dict`` is the optimizer's with the
+    accumulator and ``mini`` added, so a run resumed mid-cycle goes on
+    as an uninterrupted one. For ``graphed_epoch`` it is the schedule of
+    two captured steps (``kinds``, ``next_kind``, ``capturing``,
+    ``advance``, ``ready``)."""
+
+    kinds = ("accumulate", "step")
+
+    def __init__(self, optimizer: torch.optim.Optimizer, k: int):
+        self.optimizer = optimizer
+        self.k = k
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.count = torch.zeros((), device=self.params[0].device)
+        self.mini = 0
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    @property
+    def state(self):
+        return self.optimizer.state
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    def next_kind(self) -> str:
+        return self.kinds[self.mini == self.k - 1]
+
+    def advance(self) -> None:
+        """Count one micro-step on the host (a replayed step)."""
+        self.mini = (self.mini + 1) % self.k
+
+    def ready(self) -> bool:
+        """Whether the optimizer has made its state (stepped once), which
+        a captured step must not create."""
+        return bool(self.optimizer.state)
+
+    @contextlib.contextmanager
+    def capturing(self, kind: str) -> Iterator[None]:
+        """The host count of a step of ``kind`` while it is captured,
+        restored after: a capture takes no step."""
+        mini = self.mini
+        self.mini = self.k - 1 if kind == "step" else 0
+        try:
+            yield
+        finally:
+            self.mini = mini
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in self.params]
+        diffs = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(diffs, self.count + 1)
+        torch._foreach_add_(self.acc, diffs)
+        if self.next_kind() == "step":
+            for p, a in zip(self.params, self.acc):
+                if p.grad is None:
+                    p.grad = a.clone()
+                else:
+                    p.grad.copy_(a)
+            self.optimizer.step()
+            torch._foreach_zero_(self.acc)
+            self.count.zero_()
+        else:
+            self.count += 1
+        self.advance()
+
+    def state_dict(self) -> Dict[str, Any]:
+        sd = self.optimizer.state_dict()
+        sd["accumulation"] = {"k": self.k, "mini": self.mini,
+                              "acc": [a.detach().cpu() for a in self.acc]}
+        return sd
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        sd = dict(sd)
+        saved = sd.pop("accumulation", None)
+        self.optimizer.load_state_dict(sd)
+        with torch.no_grad():
+            if saved is None:
+                self.mini = 0
+                torch._foreach_zero_(self.acc)
+            else:
+                if saved["k"] != self.k:
+                    raise ValueError(f"checkpoint accumulates over "
+                                     f"{saved['k']} steps, not {self.k}")
+                self.mini = int(saved["mini"])
+                for a, b in zip(self.acc, saved["acc"]):
+                    a.copy_(b)
+            self.count.fill_(self.mini)
+
+
 def with_grad_accumulation(optimizer: torch.optim.Optimizer,
-                           accum_steps: int) -> torch.optim.Optimizer:
-    """The optimizer itself for ``accum_steps <= 1``. Accumulating
-    micro-batch gradients (reference: utils/model_utils.py:116-123) is
-    ported in a later PR."""
-    if accum_steps > 1:
-        raise NotImplementedError(
-            "gradient accumulation is ported in a later PR")
-    return optimizer
+                           accum_steps: int):
+    """The optimizer itself for ``accum_steps <= 1``, else a
+    ``GradAccumulation`` of ``accum_steps`` micro-steps around it."""
+    if accum_steps <= 1:
+        return optimizer
+    return GradAccumulation(optimizer, accum_steps)
 
 
 @dataclasses.dataclass
@@ -111,6 +226,7 @@ def graphed_epoch(
     eager_step: Callable[[TrainState, torch.Tensor],
                          Tuple[TrainState, Metrics]],
     body: Callable[[torch.Tensor], Tuple[Metrics, Any]],
+    schedule: Optional[GradAccumulation] = None,
 ) -> Tuple[TrainState, Metrics]:
     """One step per row of ``idx_mat`` on a CUDA device, replays of one
     captured step (module docstring); returns (state, (losses, accs)) as
@@ -121,7 +237,16 @@ def graphed_epoch(
     reads its row from the static buffer ``idx`` and returns its
     ``(loss, accuracy)`` and its augmentation draws. ``inputs`` are the
     device tensors the step gathers from; the capture, kept in ``graphs``,
-    is keyed by them and the row shape, and holds them alive."""
+    is keyed by them, the row shape and its kind, and holds them alive.
+
+    ``schedule`` (gradient accumulation) names the captured steps
+    (``kinds``) and the kind of the next one (``next_kind()``); each is
+    captured under ``capturing(kind)``, after eager steps that leave the
+    optimizer ``ready()`` (more than WARMUP_STEPS where its first step
+    comes later), and each replay is counted by ``advance()``. All
+    captures come right after the warm-up, before the first replay and
+    also where the warm-up took every row: a capture waits for the
+    device, a replay does not."""
     dev = idx_mat.device
     if (any(t.device != dev for t in inputs)
             or generator.device.type != "cuda"):
@@ -131,25 +256,39 @@ def graphed_epoch(
     out = torch.empty((2, steps), device=dev)
     key = (tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in inputs),
            tuple(idx_mat.shape[1:]), idx_mat.dtype)
-    rec, first = graphs.get(key), 0
-    if rec is None:
-        first = min(WARMUP_STEPS, steps)
+    kinds = (None,) if schedule is None else schedule.kinds
+    first = 0
+    if (key, kinds[0]) not in graphs:
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            for i in range(first):
-                state, metrics = eager_step(state, idx_mat[i])
-                out[:, i] = torch.stack(metrics)
+            while first < steps and (first < WARMUP_STEPS or not (
+                    schedule is None or schedule.ready())):
+                state, metrics = eager_step(state, idx_mat[first])
+                out[:, first] = torch.stack(metrics)
+                first += 1
         main.wait_stream(side)
-        rec = graphs[key] = _capture(inputs, idx_mat, generator, body)
-    elif rec.generator is not generator:
+        if schedule is not None and not schedule.ready():
+            # Every row went eagerly and the optimizer has not stepped:
+            # nothing can be captured yet.
+            return state, (out[0], out[1])
+        for kind in kinds:
+            with (contextlib.nullcontext() if schedule is None
+                  else schedule.capturing(kind)):
+                graphs[key, kind] = _capture(inputs, idx_mat, generator,
+                                             body)
+    elif graphs[key, kinds[0]].generator is not generator:
         raise ValueError("the captured step draws from the generator "
                          "it was captured with")
     for i in range(first, steps):
+        rec = graphs[key, None if schedule is None
+                     else schedule.next_kind()]
         rec.idx.copy_(idx_mat[i])
         rec.graph.replay()
         out[:, i].copy_(rec.metrics)
+        if schedule is not None:
+            schedule.advance()
     state.step += steps - first
     return state, (out[0], out[1])
 

@@ -5,14 +5,20 @@ batch from the device-resident dataset, augment two views (kernel B2 for
 the colour chain), one forward over all 2N images in ``channels_last``,
 NT-Xent (kernel B1 and its backward), backward, and torch-semantics Adam.
 With ``encoder='dropout'`` the sampling generator also draws the
-MC-dropout masks, after the views' draws.
+MC-dropout masks, after the views' draws. With ``accum_steps`` k > 1 a
+step is a micro-step on a full batch (JAX's ``optax.MultiSteps``): BN
+running statistics move every micro-step, Adam steps on the mean of k
+micro-steps' gradients (``train/common.py:GradAccumulation``), and
+``state.step`` counts micro-steps.
 
 The JAX engine runs an epoch as one ``lax.scan`` dispatch. Here, on a
 CUDA device, ``train_epoch`` captures the step once as a CUDA graph and
 replays it for every row of the index matrix (``train/common.py:
 graphed_epoch``, which the fine-tune engine shares); Adam is
-``capturable`` (``init_simclr`` on a CUDA device). On the CPU
-``train_epoch`` is the eager loop.
+``capturable`` (``init_simclr`` on a CUDA device). With accumulation two
+steps are captured, one that accumulates and one that also steps Adam,
+and the host picks one for each row. On the CPU ``train_epoch`` is the
+eager loop.
 """
 
 from __future__ import annotations
@@ -34,8 +40,8 @@ from simclr_tpu_torch.ops.augment import (
 from simclr_tpu_torch.ops.kernels.ntxent import nt_xent_loss_fused, supports
 from simclr_tpu_torch.ops.losses import modified_contrastive_loss
 from simclr_tpu_torch.train.common import (
-    CapturedStep, History, TrainState, adam_torch, graphed_epoch,
-    with_grad_accumulation)
+    CapturedStep, GradAccumulation, History, TrainState, adam_torch,
+    graphed_epoch, with_grad_accumulation)
 from simclr_tpu_torch.utils import checkpoint as ckpt_lib
 from simclr_tpu_torch.utils.device import resolve_device
 from simclr_tpu_torch.utils.profiling import MetricsLogger, annotate, trace
@@ -78,7 +84,8 @@ def init_simclr(cfg: Config, seed: int = 0,
                 ) -> Tuple[SimCLR, TrainState, torch.optim.Optimizer]:
     """Build the model from ``seed`` (on the CPU, so the weights do not
     depend on the device), move it to ``device`` in channels_last, and
-    wrap it with Adam (capturable on a CUDA device)."""
+    wrap it with Adam (capturable on a CUDA device), accumulated over
+    ``cfg.train.accum_steps`` micro-steps where that is above 1."""
     dev = resolve_device(device)
     cfg = resolve_model_config(cfg)
     gen = torch.Generator().manual_seed(seed)
@@ -124,7 +131,8 @@ class PretrainEngine:
         self.loss_fn = loss_fn
         self.two_pass_views = two_pass_views
         self.accum = max(cfg.train.accum_steps, 1)
-        # Captured steps, keyed by the dataset tensor and the batch shape.
+        # Captured steps, keyed by the dataset tensor, the batch shape and
+        # the kind of step (with accumulation, two).
         self.graphs: Dict[tuple, CapturedStep] = {}
 
     def sample_pair_params(self, generator: torch.Generator, n: int,
@@ -203,10 +211,12 @@ class PretrainEngine:
             draws = self.sample_pair_params(generator, *batch.shape[:3])
             return self._update(batch, draws, generator), draws
 
+        schedule = (self.optimizer
+                    if isinstance(self.optimizer, GradAccumulation) else None)
         return graphed_epoch(
             self.graphs, state, (images,), idx_mat, generator,
             lambda st, row: self.train_step(st, images, row, generator),
-            body)
+            body, schedule)
 
     @torch.no_grad()
     def eval_step_on_views(self, v1: torch.Tensor, v2: torch.Tensor,

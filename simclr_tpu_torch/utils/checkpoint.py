@@ -5,7 +5,9 @@ Counterpart of ``simclr_tpu/utils/checkpoint.py``, in torch-native files:
   (a) resumable training checkpoints (reference: utils/model_utils.py:
       141-154): ``<ckpt_dir>/epoch_{epoch:05d}/state.pt`` holds the
       model's ``state_dict`` (buffers included), the optimizer's
-      ``state_dict``, the step count and the sampling generator's state;
+      ``state_dict`` (with gradient accumulation, the accumulator and its
+      micro-step count too: ``train/common.py:GradAccumulation``), the
+      step count and the sampling generator's state;
       ``meta.json`` beside it holds ``epoch``, ``history`` and any extras
       and is written last, so a directory without it is no checkpoint;
   (b) an inference artifact (the analogue of the reference's TorchScript

@@ -413,13 +413,13 @@ def test_fused_vjp_model_gradients_match_jax():
 
 
 def test_bn_relu_fused_with_fused_blocks_is_still_refused():
-    """JAX's rule (models/resnet.py:572-574): bn_relu_fused is off under
-    fuse_identity_blocks, which the port now runs; fold_bn_scales is still
-    not ported and raises."""
+    """JAX's rule (models/resnet.py:572-575): bn_relu_fused is off under
+    fuse_identity_blocks and under fold_bn_scales, both of which the port
+    runs."""
     cfg = ModelConfig(stage_sizes=(1, 1), width=16, feature_dim=128,
                       bn_relu_fused=True)
     assert any(isinstance(m, SubsetBNAct) for m in SimCLR(cfg).modules())
     fused = SimCLR(dataclasses.replace(cfg, fuse_identity_blocks=True))
     assert not any(isinstance(m, SubsetBNAct) for m in fused.modules())
-    with pytest.raises(NotImplementedError):
-        SimCLR(dataclasses.replace(cfg, fold_bn_scales=True))
+    folded = SimCLR(dataclasses.replace(cfg, fold_bn_scales=True))
+    assert not any(isinstance(m, SubsetBNAct) for m in folded.modules())

@@ -46,7 +46,7 @@ def test_every_port_module_imports_without_jax():
                  "train.lin_eval", "train.ssl", "scripts.lin_eval",
                  "scripts.train_ssl", "models.mine", "train.supervised",
                  "train.mine", "scripts.train_supervised",
-                 "scripts.train_mine"):
+                 "scripts.train_mine", "ops.foldconv", "ops.subset_wgrad"):
         assert f"simclr_tpu_torch.{name}" in modules
     root = Path(simclr_tpu_torch.__file__).resolve().parents[1]
     result = subprocess.run(

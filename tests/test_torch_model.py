@@ -171,13 +171,26 @@ def test_training_forward_and_gradients_match_jax(over):
 
 
 def test_unported_flags_raise():
+    """The flags this test once saw refused are ported: each builds a
+    model whose parameter and statistics tree is the JAX model's, leaf
+    for leaf and shape for shape (the JAX tree is the same on and off
+    each of them)."""
+    _, jmodel, params, stats = _pair()
+    shapes = jax.eval_shape(
+        lambda: jmodel.init({"params": jax.random.key(0)},
+                            jnp.zeros((2, SIZE, SIZE, 3)), train=False))
+    want = {k: v.shape for k, v in _flat(jax.tree.map(
+        lambda s: np.zeros(s.shape, np.float32), shapes["params"]))}
+    want_stats = {k for k, _ in _flat(jax.tree.map(
+        lambda s: np.zeros(()), shapes["batch_stats"]))}
     for field, value in [("fold_bn_scales", True), ("bn12_shadow_stats", True),
                          ("relu_from_output", True),
                          ("conv_wgrad_fraction", 0.5),
                          ("remat_stages", (0,))]:
         cfg = dataclasses.replace(ModelConfig(**SMALL), **{field: value})
-        with pytest.raises(NotImplementedError):
-            SimCLR(cfg)
+        p, s = simclr_to_jax(SimCLR(cfg).state_dict())
+        assert {k: v.shape for k, v in _flat(p)} == want, field
+        assert {k for k, _ in _flat(s)} == want_stats, field
     # The MC-dropout encoder is ported; an unknown encoder is refused.
     SimCLR(dataclasses.replace(ModelConfig(**SMALL), encoder="dropout"))
     with pytest.raises(ValueError, match="unknown encoder"):

@@ -265,8 +265,11 @@ def test_modified_loss_and_accumulation_selection():
     torch.testing.assert_close(engine.loss_fn(z[:4], z[4:]),
                                modified_contrastive_loss(z[:4], z[4:], 0.5))
     acc = tc.replace(train=dataclasses.replace(tc.train, accum_steps=2))
-    with pytest.raises(NotImplementedError):
-        init_simclr(acc, seed=0, device="cpu")
+    model, state, opt = init_simclr(acc, seed=0, device="cpu")
+    assert isinstance(opt, tcommon.GradAccumulation) and opt.k == 2
+    assert state.optimizer is opt and build_engine(acc, model, opt).accum == 2
+    assert not isinstance(init_simclr(tc, seed=0, device="cpu")[2],
+                          tcommon.GradAccumulation)
 
 
 def test_contrastive_fn_uses_kernel_b1_and_refuses_what_it_cannot_run():

@@ -358,6 +358,14 @@ def test_cli_help(capsys):
     (["--n_devices", "2"], "item 11"), (["--engine", "explicit"], "item 11"),
     (["--accum_steps", "2"], "item 3")])
 def test_cli_refuses_unported_flags(flags, item):
+    """Data parallelism (ROADMAP Queue A item 11) is refused. Gradient
+    accumulation (item 3) is ported: the CLI takes ``--accum_steps`` and
+    the config carries it."""
+    if item == "item 3":
+        args = cli.parse_args(flags + ["--device", "cpu"])
+        cli.refuse_unported(args)
+        assert cli.config_from_args(args).train.accum_steps == 2
+        return
     with pytest.raises(NotImplementedError, match=item):
         cli.main(flags + ["--device", "cpu"])
 
