@@ -139,6 +139,26 @@ Phases, each printed as one line with its result and wall time:
    sample, the eager steps and the capture; finite traces; ms a step,
    the busy share of two replayed steps, peak memory.
 
+21. native: the port's C++ data plane builds (no numpy fallback on the
+   card); its CIFAR-10 and STL-10 decoders give numpy's bytes;
+   ``NativePipeline``'s batches are the gathers of their rows, each row
+   once an epoch; its batches/s at batch 512 over 50,000 CIFAR-shaped
+   images, on the host and with the copy to the card.
+22. streaming: ``pretrain_streaming`` at full width (batch 512, 4,096
+   synthetic images, 3 epochs) with the numpy feed and with the native
+   pipeline, every step a graph replay but the first two (B1f/B1b 1 and
+   B2 2 a step, counted); a streamed epoch against a resident one from
+   the same weights, permutation and generator, bit for bit with cuDNN
+   deterministic; steps/s of both feeds and of the resident epoch, the
+   busy share of 4 profiled streamed steps and their host-to-device copy
+   time.
+23. parallel: (a) a one-rank NCCL group in this process, the explicit
+   data-parallel engine's graphed epoch at full width against the
+   one-device engine (loss within 1e-3; B2 2 a step, no B1), steps/s and
+   busy share; (b) two gloo ranks in two processes on this card, width
+   16, float32, one explicit SGD step against one process on the global
+   batch.
+
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -3089,6 +3109,430 @@ def mine_phase(torch, smi, pre):
                        f"the eager steps and the capture), no other kernel"}
 
 
+# ---------------------------------------------------------------------------
+# Host streaming, the C++ data plane and data parallelism.
+# ---------------------------------------------------------------------------
+
+def _cifar_files(root, np, n=64):
+    """CIFAR-10 binary batches and an STL-10 file with labels, random."""
+    import os
+    rng = np.random.RandomState(0)
+    d = os.path.join(root, "cifar-10-batches-bin")
+    os.makedirs(d)
+    for name in [f"data_batch_{i}.bin" for i in range(1, 6)] + [
+            "test_batch.bin"]:
+        np.concatenate([rng.randint(0, 10, (n, 1)),
+                        rng.randint(0, 256, (n, 3072))], 1).astype(
+            np.uint8).tofile(os.path.join(d, name))
+    s = os.path.join(root, "stl10_binary")
+    os.makedirs(s)
+    rng.randint(0, 256, (16, 3, 96, 96)).astype(np.uint8).tofile(
+        os.path.join(s, "train_X.bin"))
+    rng.randint(1, 11, 16).astype(np.uint8).tofile(
+        os.path.join(s, "train_y.bin"))
+    return d, s
+
+
+@phase("native")
+def native_phase(torch, smi):
+    """The port's C++ data plane on the card's host: it must build (no
+    numpy fallback here); its decoders must give the numpy decoders'
+    bytes and ``NativePipeline``'s batches the rows of a numpy gather by
+    their labels, every row once an epoch; then its batches/s at batch 512
+    over 50,000 CIFAR-shaped images (host only, ``next(copy=False)``) and
+    with the copy to the card (``next_device()``, synchronised at the
+    end)."""
+    import os
+    import numpy as np
+    from simclr_tpu_torch.data import datasets, native
+
+    t0 = time.perf_counter()
+    if native.load_library() is None:
+        raise AssertionError("the native data plane did not build")
+    build_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    try:
+        cifar, stl = _cifar_files(tmp, np)
+        for train in (True, False):
+            got = native.decode_cifar10_binary(cifar, train)
+            want = datasets._cifar10_binary_numpy(cifar, train)
+            if got is None or not all(np.array_equal(a, b)
+                                      for a, b in zip(got, want)):
+                raise AssertionError("CIFAR-10 decode differs from numpy")
+        x, y = os.path.join(stl, "train_X.bin"), os.path.join(stl,
+                                                               "train_y.bin")
+        got, want = native.decode_stl10(x, y, 16), datasets._stl10_numpy(x, y)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("STL-10 decode differs from numpy")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n, batch = 50_000, 512
+    images = np.random.default_rng(0).integers(0, 256, (n, 32, 32, 3),
+                                               dtype=np.uint8)
+    labels = np.arange(n, dtype=np.int32)
+    with native.NativePipeline(images, labels, batch, seed=0,
+                               device="cuda") as pipe:
+        seen = []
+        for _ in range(pipe.steps_per_epoch):
+            imgs, labs = pipe.next(copy=False)
+            if not np.array_equal(imgs, images[labs]):
+                raise AssertionError("a batch is not the gather of its rows")
+            seen.append(labs.copy())
+        seen = np.concatenate(seen)
+        if len(np.unique(seen)) != len(seen) or len(seen) != (
+                n // batch) * batch:
+            raise AssertionError("an epoch did not take each row once")
+        steps = 2 * pipe.steps_per_epoch
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            pipe.next(copy=False)
+        host_rate = steps / (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            d_imgs, _ = pipe.next_device()
+        torch.cuda.synchronize()
+        device_rate = steps / (time.perf_counter() - t0)
+        if not torch.equal(d_imgs.cpu(), torch.from_numpy(
+                pipe._out[(pipe._slot ^ 1)][0].numpy())):
+            raise AssertionError("the card's batch differs from the host's")
+    return {"host_rate": host_rate, "device_rate": device_rate,
+            "summary": f"built in {build_s:.2f} s; decoders equal numpy; "
+                       f"NativePipeline at batch {batch} over {n} images: "
+                       f"{host_rate:.1f} batches/s on the host, "
+                       f"{device_rate:.1f} batches/s with the copy to the "
+                       f"card (pinned buffers, side stream), on {smi}"}
+
+
+def _counted_run(torch, per_step, captures, fn):
+    """fn() with the launch counts set to 0 just before and read just
+    after; each counter must show its launches a step times the eager
+    steps and captures (WARMUP_STEPS + ``captures``), every other 0."""
+    from simclr_tpu_torch.train.common import WARMUP_STEPS
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for name, count in counts.items():
+        want = per_step.get(name, 0) * (WARMUP_STEPS + captures)
+        if count != want:
+            raise AssertionError(f"{name}: {count} launches, expected "
+                                 f"{per_step.get(name, 0)} a step: {counts}")
+    return out, counts
+
+
+def _state_bits(model, opt):
+    out = {f"m.{k}": v for k, v in model.state_dict().items()}
+    for i, st in enumerate(opt.state.values()):
+        out.update({f"o.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+@phase("streaming")
+def streaming_phase(torch, smi):
+    """``pretrain_streaming`` at full width (``Config()``, batch 512) on
+    4,096 synthetic CIFAR-shaped images, 3 epochs of 8 steps, with the
+    numpy feed and with the native pipeline: every step a replay of one
+    captured step but the first epoch's 2 eager ones, B1f/B1b 1 and B2 2
+    a step (counted in the eager steps and the capture), finite losses;
+    steps/s of the last two epochs. Then, with cuDNN deterministic, one
+    streamed epoch (``train_stream`` over ``host_stream``) against one
+    resident ``train_epoch`` from the same weights, permutation and
+    generator: parameters, buffers and Adam state bit for bit; a second
+    resident epoch gives the resident steps/s; and 4 streamed steps under
+    the profiler give the device's busy share (kernels and the
+    device-to-device copy into the graph's batch, not the host-to-device
+    copies, which run on the side stream beside them) and the
+    host-to-device copy time a step."""
+    from simclr_tpu_torch.config import Config
+    from simclr_tpu_torch.data.datasets import synthetic_dataset
+    from simclr_tpu_torch.data.pipeline import epoch_permutation, host_stream
+    from simclr_tpu_torch.train.pretrain import (
+        build_engine, epoch_seed, init_simclr)
+    from simclr_tpu_torch.train.streaming import pretrain_streaming
+
+    cfg = Config()
+    batch = cfg.train.batch_size
+    images, labels = synthetic_dataset(4096, img_size=32, seed=0)
+    rates, notes = {}, []
+    for feed in ("numpy", "native"):
+        res, _ = _counted_run(torch, _PER_STEP, 1, lambda: pretrain_streaming(
+            cfg, images, labels, n_epochs=3,
+            use_native_pipeline=feed == "native", log=lambda _: None))
+        losses = res.history.loss["train"]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{feed}: losses {losses}")
+        rates[feed] = res.steady_steps_per_sec
+        notes.append(f"{feed} feed: epoch losses "
+                     f"{[round(v, 4) for v in losses]}, "
+                     f"{res.steady_steps_per_sec:.3f} steps/s")
+        del res
+        _release(torch, {})
+
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        runs = {}
+        d_images = torch.from_numpy(images).cuda()
+        like = torch.empty((batch, 32, 32, 3), dtype=torch.uint8,
+                           device="cuda")
+        for kind in ("resident", "streamed"):
+            model, state, opt = init_simclr(cfg, 0, "cuda")
+            engine = build_engine(cfg, model, opt)
+            gen = torch.Generator(device="cuda").manual_seed(
+                epoch_seed(0, 0))
+            if kind == "resident":
+                idx = epoch_permutation(gen, 4096, batch)
+                state, (losses, _) = engine.train_epoch(state, d_images, idx,
+                                                        gen)
+            else:
+                batches = (b for b, _ in host_stream(images, labels, batch,
+                                                     gen))
+                state, (losses, _) = engine.train_stream(state, batches, 8,
+                                                         like, gen)
+            torch.cuda.synchronize()
+            runs[kind] = (losses.cpu(), _state_bits(model, opt), engine,
+                          state, gen)
+        (l0, s0, eng_r, st_r, gen_r), (l1, s1, eng_s, st_s, gen_s) = (
+            runs["resident"], runs["streamed"])
+        same = torch.equal(l0, l1) and s0.keys() == s1.keys() and all(
+            torch.equal(s0[k], s1[k]) for k in s0)
+        if not same:
+            bad = [k for k in s0 if not torch.equal(s0[k], s1[k])][:5]
+            raise AssertionError(f"streamed epoch differs from resident: "
+                                 f"losses {l0.tolist()} vs {l1.tolist()}, "
+                                 f"first differing {bad}")
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    # The resident rate: a second epoch of replays.
+    gen_r.manual_seed(epoch_seed(0, 1))
+    idx = epoch_permutation(gen_r, 4096, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng_r.train_epoch(st_r, d_images, idx, gen_r)[1][0].cpu()
+    rates["resident"] = 8 / (time.perf_counter() - t0)
+    # A profiled streamed run of 4 replays.
+    gen_s.manual_seed(epoch_seed(0, 1))
+    stream = host_stream(images[:4 * batch], labels[:4 * batch], batch,
+                         gen_s)
+    prof, wall_ms, by_name = _profiled(
+        torch, lambda: eng_s.train_stream(st_s, (b for b, _ in stream), 4,
+                                          like, gen_s))
+    h2d = sum(ms for name, ms in by_name.items() if "HtoD" in name)
+    busy = sum(ms for name, ms in by_name.items() if "HtoD" not in name)
+    named = _named_launches(prof)
+    if named["ntxent_fwd"] != 4 or named["color"] != 8:
+        raise AssertionError(f"replays ran kernels by name {named}")
+    del runs, eng_r, eng_s, st_r, st_s, d_images
+    _release(torch, {})
+    return {"rates": rates, "busy": 100 * busy / wall_ms,
+            "h2d_ms": h2d / 4,
+            "summary": "; ".join(notes) + f"; streamed epoch == resident "
+                       f"epoch bit for bit (losses, parameters, buffers, "
+                       f"Adam state); resident {rates['resident']:.3f} "
+                       f"steps/s; profiled streamed steps: wall "
+                       f"{wall_ms / 4:.2f} ms/step, device busy "
+                       f"{busy / 4:.2f} ms/step ({100 * busy / wall_ms:.1f}%"
+                       f"), host-to-device copies {h2d / 4:.3f} ms/step "
+                       f"(side stream); on {smi}"}
+
+
+# The two-rank gloo check on the card (width 16, float32, batch 32, one
+# SGD step): the ranks score their rows with the plain float32 local loss,
+# one process the global batch through kernel B1 (3xTF32, within 1.9e-6
+# of plain), and every BN's statistics are summed in another order. The
+# loss within 1e-5 relative. The parameters' distance from the one
+# process's, over the whole tree, within 1e-2 of the step's change: on the
+# CPU this configuration gives 1.4e-3 (the pieces alone, the gathered
+# loss and an axis BN at (64, 16, 32, 32), agree to 1e-7; one process
+# against itself on the batch in reverse order, 8.8e-5): a pre-activation
+# within rounding of 0 flips its ReLU mask, and the step's gradient at
+# init is a small difference of large terms. The head's hidden bias, zero
+# in exact arithmetic (a BN follows), within 1e-6 absolute.
+_GLOO_LOSS_RTOL, _GLOO_STEP_REL, _GLOO_NOISE_ATOL = 1e-5, 1e-2, 1e-6
+_GLOO_NOISE = ("g.linear0.bias",)
+
+
+def _gloo_config():
+    from simclr_tpu_torch.config import Config, ModelConfig
+    cfg = Config(model=ModelConfig(
+        feature_dim=512, stage_sizes=(1, 1, 1, 1), width=16,
+        compute_dtype="float32", bn_dtype="float32", bn_stats_fraction=1.0))
+    return cfg.replace(train=dataclasses.replace(cfg.train, batch_size=32))
+
+
+def _gloo_step(mesh, images):
+    """One SGD step of the width-16 float32 model on the global batch,
+    through the explicit engine on ``mesh`` (a rank of the gloo group) or
+    the one-device engine (``mesh`` None); (loss, parameters, launches)."""
+    import torch
+    from simclr_tpu_torch.train.pretrain import build_engine, init_simclr
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg = _gloo_config()
+    model, state, _ = init_simclr(cfg, 0, "cuda:0", mesh=mesh)
+    start = {k: v.detach().cpu().numpy().copy() for k, v in
+             model.named_parameters()}
+    sgd = torch.optim.SGD(model.parameters(), lr=0.05)
+    engine = build_engine(cfg, model, sgd, mesh=mesh)
+    reset_counts()
+    state, (loss, _) = engine.train_step_on_batch(
+        state, torch.from_numpy(images).to("cuda:0"),
+        torch.Generator(device="cuda:0").manual_seed(3))
+    torch.cuda.synchronize()
+    return (loss.item(), {k: v.detach().cpu().numpy() for k, v in
+                          model.named_parameters()}, read_counts(), start)
+
+
+def _copy_state(torch, dst, src):
+    """Copy one engine's model and Adam state into another's, in place
+    (the addresses a captured step reads stay the same)."""
+    with torch.no_grad():
+        dst_sd, src_sd = dst.model.state_dict(), src.model.state_dict()
+        for k, v in src_sd.items():
+            dst_sd[k].copy_(v)
+        for pd, ps in zip(dst.model.parameters(), src.model.parameters()):
+            for k, v in src.optimizer.state[ps].items():
+                dst.optimizer.state[pd][k].copy_(v)
+
+
+def _gloo_check(torch):
+    """Two gloo ranks in two processes on this card against one process
+    on the global batch (``_gloo_step``); a summary line. Restores the
+    cuDNN determinism setting it changes."""
+    import numpy as np
+    from simclr_tpu_torch.parallel.launch import spawn_ranks
+    small = np.random.RandomState(0).randint(0, 256, (32, 32, 32, 3)).astype(
+        np.uint8)
+    two = spawn_ranks(_gloo_step, 2, small, timeout=300, device="cuda:0",
+                      backend="gloo", threads=0)
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        one_loss, one_params, _, one_start = _gloo_step(None, small)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    bad, rels = [], []
+    keys = [k for k in one_params if k not in _GLOO_NOISE]
+    step = math.sqrt(sum(float(np.sum((one_params[k] - one_start[k]) ** 2))
+                         for k in keys))
+    for loss, params, counts, _ in two:
+        if abs(loss - one_loss) > _GLOO_LOSS_RTOL * abs(one_loss):
+            bad.append(f"loss {loss} vs {one_loss}")
+        if counts["color"] != 2 or counts["ntxent_fwd"]:
+            bad.append(f"launches {counts}")
+        apart = math.sqrt(sum(float(np.sum((params[k] - one_params[k]) ** 2))
+                              for k in keys))
+        rels.append(apart / step)
+        if rels[-1] > _GLOO_STEP_REL:
+            bad.append(f"parameters {rels[-1]:.3e} of the step apart")
+        for k in _GLOO_NOISE:
+            if np.abs(params[k] - one_params[k]).max() > _GLOO_NOISE_ATOL:
+                bad.append(f"{k} apart")
+    if bad:
+        raise AssertionError(f"gloo ranks against one process: {bad}; "
+                             f"losses {[t[0] for t in two]} vs {one_loss}")
+    return (f"two gloo ranks on this card, width 16 float32: losses "
+            f"{[round(t[0], 7) for t in two]} vs one process "
+            f"{one_loss:.7f}; after one SGD step the parameters "
+            f"{max(rels):.2e} of the step's change apart")
+
+
+@phase("parallel")
+def parallel_phase(torch, smi):
+    """(a) A one-rank NCCL group in this process: the explicit engine at
+    full width (``Config()``, batch 512; the NCCL all-reduces of the BN
+    moments, the projections' gather and the gradients inside the
+    captured step) against the one-device engine, one row at a time, each
+    step from the same state (the one-device engine's model and Adam state
+    copied into the explicit one's tensors before it): the first step
+    eager, the others replays of each engine's captured step; each loss
+    within 1e-3 relative (B1 against the plain local loss; from one state
+    to the next the two part, as Adam's first steps amplify float32 noise,
+    so the states are re-aligned). B2 2 a step and no B1 on the explicit
+    engine (counted in its eager step and its capture); steps/s of 8
+    replays and the busy share of 2 profiled replays. (b) Two gloo ranks
+    in two processes on this card (NCCL refuses two ranks on one GPU),
+    width 16, float32, one eager SGD step of the explicit engine against
+    one process on the global batch (``_GLOO_*`` tolerances)."""
+    import torch.distributed as dist
+    from simclr_tpu_torch.config import Config
+    from simclr_tpu_torch.data.datasets import synthetic_dataset
+    from simclr_tpu_torch.data.pipeline import DeviceDataset, epoch_permutation
+    from simclr_tpu_torch.parallel.mesh import make_mesh
+    from simclr_tpu_torch.train.pretrain import build_engine, init_simclr
+
+    cfg = Config()
+    batch = cfg.train.batch_size
+    images, labels = synthetic_dataset(4096, img_size=32, seed=0)
+    ds = DeviceDataset.from_numpy(images, labels, "cuda")
+    mesh = make_mesh(1, device="cuda")
+    try:
+        run = {}
+        for kind in ("one_device", "explicit"):
+            on = mesh if kind == "explicit" else None
+            model, state, opt = init_simclr(cfg, 0, "cuda", mesh=on)
+            run[kind] = (build_engine(cfg, model, opt, mesh=on), state,
+                         torch.Generator(device="cuda").manual_seed(1))
+        idx = torch.cat([epoch_permutation(run["explicit"][2], 4096, batch)
+                         for _ in range(2)])
+        run["one_device"][2].manual_seed(1)
+        run["explicit"][2].manual_seed(1)
+        losses = {k: [] for k in run}
+        counts = {}
+        for i in range(5):
+            _copy_state(torch, run["explicit"][0], run["one_device"][0])
+            for kind, (engine, state, gen) in run.items():
+                if kind == "explicit":
+                    reset_counts()
+                _, (loss, _) = engine.train_epoch(state, ds.images,
+                                                  idx[i:i + 1], gen)
+                losses[kind].append(loss.item())
+                if kind == "explicit":
+                    counts = {k: counts.get(k, 0) + v
+                              for k, v in read_counts().items()}
+        diff = max(abs(a - b) / abs(b) for a, b in zip(losses["explicit"],
+                                                       losses["one_device"]))
+        if not diff <= 1e-3:
+            raise AssertionError(f"explicit {losses['explicit']} vs "
+                                 f"one-device {losses['one_device']}")
+        # One eager step and the capture, each 2 B2 and no B1.
+        if counts != {k: (4 if k == "color" else 0) for k in counts}:
+            raise AssertionError(f"explicit engine launches {counts}")
+        engine, state, gen = run.pop("explicit")
+        run.clear()
+        _release(torch, {})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.train_epoch(state, ds.images, idx[5:13], gen)[1][0].cpu()
+        rate = 8 / (time.perf_counter() - t0)
+        _, wall_ms, by_name = _profiled(
+            torch, lambda: engine.train_epoch(state, ds.images, idx[13:15],
+                                              gen))
+        busy = sum(by_name.values())
+        nccl = sum(ms for n, ms in by_name.items() if "nccl" in n.lower())
+        del engine, state, ds
+    finally:
+        dist.destroy_process_group()
+    _release(torch, {})
+    gloo = _gloo_check(torch)
+    return {"rate": rate, "busy": 100 * busy / wall_ms,
+            "summary": f"(a) one-rank NCCL explicit engine, ResNet-50 "
+                       f"batch 512, each step from the one-device "
+                       f"engine's state: losses "
+                       f"{[round(v, 6) for v in losses['explicit']]} vs "
+                       f"{[round(v, 6) for v in losses['one_device']]} "
+                       f"(max rel diff {diff:.2e}); {rate:.3f} steps/s; 2 "
+                       f"profiled replays: wall {wall_ms / 2:.2f} ms/step, "
+                       f"device busy {busy / 2:.2f} ms/step "
+                       f"({100 * busy / wall_ms:.1f}%), NCCL kernels "
+                       f"{nccl / 2:.3f} ms/step; launches {counts}. (b) "
+                       f"{gloo}; on {smi}"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3161,6 +3605,9 @@ def main() -> int:
         mine_phase(torch, info["smi"], pre)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    native_phase(torch, info["smi"])
+    streaming_phase(torch, info["smi"])
+    parallel_phase(torch, info["smi"])
 
     src = "simclr_tpu_torch/csrc/"
     b3_src = "simclr_tpu/ops/pallas/bn_relu.py:"

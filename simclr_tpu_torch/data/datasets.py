@@ -1,10 +1,10 @@
 """Dataset decoding: CIFAR-10 / STL-10 binaries -> uint8 NHWC arrays.
 
-The port's copy of ``simclr_tpu/data/datasets.py`` (numpy only, so the
-copy is exact): the whole dataset is decoded once into one contiguous uint8
-NHWC array, and ``data/pipeline.py`` puts it on the device. The binary
-formats are decoded with numpy; the C++ data plane of the JAX package is
-ported in a later PR.
+The port's copy of ``simclr_tpu/data/datasets.py``: the whole dataset is
+decoded once into one contiguous uint8 NHWC array, and ``data/pipeline.py``
+puts it on the device. The binary formats are decoded by the port's C++
+data plane (``data/native``) first, as the JAX package does, and in numpy
+where that library cannot be built; the two give the same bytes.
 
 Supported on-disk formats:
   * CIFAR-10 python pickles  (cifar-10-batches-py/data_batch_*, test_batch)
@@ -55,6 +55,15 @@ def _load_cifar10_python(batch_dir: str, train: bool) -> Arrays:
 
 
 def _load_cifar10_binary(batch_dir: str, train: bool) -> Arrays:
+    from simclr_tpu_torch.data import native
+
+    decoded = native.decode_cifar10_binary(batch_dir, train)
+    if decoded is not None:
+        return decoded
+    return _cifar10_binary_numpy(batch_dir, train)
+
+
+def _cifar10_binary_numpy(batch_dir: str, train: bool) -> Arrays:
     files = ([f"data_batch_{i}.bin" for i in range(1, 6)] if train
              else ["test_batch.bin"])
     rows = []
@@ -90,10 +99,21 @@ def load_stl10(data_dir: str, split: str = "unlabeled") -> Optional[Arrays]:
     x_path = os.path.join(base, f"{split}_X.bin")
     if not os.path.isfile(x_path):
         return None
+    from simclr_tpu_torch.data import native
+
+    y_path = os.path.join(base, f"{split}_y.bin")
+    decoded = native.decode_stl10(
+        x_path, y_path if os.path.isfile(y_path) else None,
+        os.path.getsize(x_path) // (3 * 96 * 96))
+    if decoded is not None:
+        return decoded
+    return _stl10_numpy(x_path, y_path)
+
+
+def _stl10_numpy(x_path: str, y_path: str) -> Arrays:
     raw = np.fromfile(x_path, np.uint8).reshape(-1, 3, 96, 96)
     # Channels stored column-major: transpose each channel's axes, then CHW->HWC.
     imgs = np.ascontiguousarray(raw.transpose(0, 3, 2, 1))
-    y_path = os.path.join(base, f"{split}_y.bin")
     if os.path.isfile(y_path):
         labels = np.fromfile(y_path, np.uint8).astype(np.int32) - 1  # 1-based
     else:

@@ -6,14 +6,21 @@ an index matrix, and a batch is a row gather from it. ``make_split``
 decides which samples live where for each training mode, with the JAX
 package's indices; augmentation runs inside the engine's step.
 
-``infinite_stream`` yields shuffled batches without end; ``host_stream``
-comes with the streaming path that uses it (ROADMAP Queue A item 10).
+``infinite_stream`` yields shuffled batches without end.
+
+For datasets kept on the host there is ``host_stream``, a double-buffered
+host-to-device feed (JAX: ``host_stream``, an asynchronous
+``jax.device_put`` of the next batch while the current one computes):
+each batch is gathered on the host into a pinned staging buffer and
+copied with ``non_blocking`` on a side CUDA stream, and the consumer's
+stream waits on that copy's event, so the copy of batch t + prefetch
+overlaps step t.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,6 +135,79 @@ def iterate_sequential(
     for start in range(0, ds.n, batch_size):
         stop = min(start + batch_size, ds.n)
         yield ds.images[start:stop], ds.labels[start:stop]
+
+
+def host_stream(
+    images: np.ndarray,
+    labels: np.ndarray,
+    batch_size: int,
+    generator: torch.Generator,
+    prefetch: int = 2,
+    device: "str | torch.device" = "cuda",
+    mesh=None,
+) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """One epoch of shuffled (images, labels) batches from host arrays, on
+    ``device``, the remainder dropped.
+
+    The permutation is ``epoch_permutation(generator, n, batch_size)``'s,
+    drawn when this is called (so a resident epoch over the same generator
+    takes the same rows, and the step draws that follow are the same). On
+    CUDA each batch is gathered into one of ``prefetch + 1`` pinned staging
+    buffers and copied on a side stream; a staging buffer is refilled only
+    once the copy from it has finished (its CUDA event), and the stream
+    current when a batch is taken waits for that batch's copy (the host
+    does not). With a ``mesh`` (``parallel/mesh.py``) each batch is this
+    rank's contiguous slice of the global batch."""
+    dev = resolve_device(device)
+    idx_mat = epoch_permutation(generator, images.shape[0],
+                                batch_size).cpu().numpy()
+    if mesh is not None and mesh.size > 1:
+        from simclr_tpu_torch.parallel.mesh import shard_batch
+
+        idx_mat = np.stack([shard_batch(row, mesh) for row in idx_mat])
+    labels = np.asarray(labels, np.int32)
+    if dev.type != "cuda":
+        return ((torch.from_numpy(images[row]), torch.from_numpy(labels[row]))
+                for row in idx_mat)
+    return _cuda_stream(images, labels, idx_mat, prefetch, dev)
+
+
+def _cuda_stream(images: np.ndarray, labels: np.ndarray, idx_mat: np.ndarray,
+                 prefetch: int, dev: torch.device
+                 ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    m = idx_mat.shape[1]
+    slots = [(torch.empty((m,) + images.shape[1:], dtype=torch.uint8,
+                          pin_memory=True),
+              torch.empty((m,), dtype=torch.int32, pin_memory=True))
+             for _ in range(prefetch + 1)]
+    copied: List[Optional[torch.cuda.Event]] = [None] * len(slots)
+    side = torch.cuda.Stream(dev)
+
+    def put(step):
+        s = step % len(slots)
+        if copied[s] is not None:
+            copied[s].synchronize()
+        host_imgs, host_labs = slots[s]
+        np.take(images, idx_mat[step], axis=0, out=host_imgs.numpy())
+        np.take(labels, idx_mat[step], axis=0, out=host_labs.numpy())
+        with torch.cuda.stream(side):
+            out = (host_imgs.to(dev, non_blocking=True),
+                   host_labs.to(dev, non_blocking=True))
+            copied[s] = torch.cuda.Event()
+            copied[s].record(side)
+        return out, copied[s]
+
+    steps = idx_mat.shape[0]
+    buf = [put(i) for i in range(min(prefetch, steps))]
+    for step in range(steps):
+        if step + prefetch < steps:
+            buf.append(put(step + prefetch))
+        batch, done = buf.pop(0)
+        consumer = torch.cuda.current_stream(dev)
+        consumer.wait_event(done)
+        for t in batch:
+            t.record_stream(consumer)
+        yield batch
 
 
 def make_split(cfg: Config, mode: str,

@@ -13,6 +13,14 @@ Parameters and buffers are ``weight``, ``bias``, ``running_mean`` and
 takes the unbiased m/(m-1) estimate of the subset, m being the elements
 reduced per channel.
 
+``SubsetBatchNorm(axis_name=...)`` (data parallelism, JAX's ``axis_name``):
+the shifted moments of each rank's statistics rows are averaged over the
+ranks of the mesh bound to that name (``parallel/mesh.py``), with
+gradient, and the running variance is unbiased over all ranks' elements;
+the ``fused_vjp`` route is skipped under an axis, as in JAX. The other BNs
+have no axis: under a mesh they take per-rank statistics, as JAX's
+``FoldedBatchNorm``, ``BNScaleBias`` and ``SubsetBNAct`` do.
+
 Remat (``models/resnet.py``'s checkpointed blocks) runs a block's forward
 a second time in the backward. flax's ``nn.remat`` neither updates the
 running statistics twice nor shifts the recompute's one-pass statistics
@@ -22,6 +30,8 @@ and ``update_running`` writes nothing.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -120,7 +130,7 @@ class SubsetBatchNorm(RunningStats):
                  eps: float = 1e-5, dtype: torch.dtype = torch.bfloat16,
                  stats_fraction: float = 0.25, min_stats_samples: int = 64,
                  grad_mode: str = "exact", st_surrogate: str = "affine",
-                 fused_vjp: bool = False):
+                 fused_vjp: bool = False, axis_name: Optional[str] = None):
         super().__init__()
         if grad_mode not in GRAD_MODES:
             raise ValueError(f"unknown grad_mode {grad_mode!r}")
@@ -134,6 +144,7 @@ class SubsetBatchNorm(RunningStats):
         self.grad_mode = grad_mode
         self.st_surrogate = st_surrogate
         self.fused_vjp = fused_vjp
+        self.axis_name = axis_name
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self._stats_buffers(features)
@@ -150,7 +161,12 @@ class SubsetBatchNorm(RunningStats):
                                       self.eps, dt)
 
         n = x.shape[0]
-        if self.fused_vjp:
+        mesh = None
+        if self.axis_name is not None:
+            from simclr_tpu_torch.parallel.mesh import axis_mesh
+
+            mesh = axis_mesh(self.axis_name)
+        if self.fused_vjp and mesh is None:
             if x_subset is not None:
                 raise ValueError("fused_vjp takes its statistics from x[:k]; "
                                  "x_subset is not supported")
@@ -167,9 +183,10 @@ class SubsetBatchNorm(RunningStats):
             xs = x
         # One-pass variance around the running mean, a free shift that
         # keeps E[d^2] - E[d]^2 well conditioned in float32.
-        mean, var = subset_bn.bn_stats(xs, self.shift(), k)
+        mean, var = subset_bn.bn_stats(xs, self.shift(), k, mesh)
         self.update_running(mean, var,
-                            subset_bn.elems_per_channel(xs.shape, k))
+                            subset_bn.elems_per_channel(xs.shape, k)
+                            * (1 if mesh is None else mesh.size))
         if self.grad_mode == "exact":
             return subset_bn.bn_apply(x, self.weight, self.bias, mean, var,
                                       self.eps, dt)

@@ -431,7 +431,12 @@ class ResNetEncoder(nn.Module):
     ``relu_barrier`` have no effect (module docstring). ``mc_dropout``: an
     ``MCDropout(drop_prob)`` after the stem's ReLU (before the STL stem's
     max-pool) and after each of the four stages, on in train and eval mode
-    alike; ``forward`` then takes the generator that draws the masks."""
+    alike; ``forward`` then takes the generator that draws the masks.
+    ``bn_axis_name`` (data parallelism): every ``SubsetBatchNorm`` averages
+    its statistics over the ranks of the mesh bound to that name, and
+    ``bn_relu_fused`` is off, as in JAX (``resnet.py:573``); the fused and
+    folded identity blocks keep per-rank statistics, as JAX's do under
+    ``shard_map``."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  width: int = 64, low_quality_img: bool = True,
@@ -458,6 +463,7 @@ class ResNetEncoder(nn.Module):
                  remat_stages: Sequence[int] = (),
                  mc_dropout: bool = False,
                  drop_prob: float = 0.3,
+                 bn_axis_name: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
@@ -471,10 +477,12 @@ class ResNetEncoder(nn.Module):
             return SubsetBatchNorm(
                 features, momentum=0.9, eps=1e-5, dtype=bn_dtype,
                 stats_fraction=bn_stats_fraction, grad_mode=bn_grad_mode,
-                st_surrogate=bn_st_surrogate, fused_vjp=bn_fused_vjp)
+                st_surrogate=bn_st_surrogate, fused_vjp=bn_fused_vjp,
+                axis_name=bn_axis_name)
 
         bnact = None
-        if bn_relu_fused and not fuse_identity_blocks and not fold_bn_scales:
+        if (bn_relu_fused and bn_axis_name is None
+                and not fuse_identity_blocks and not fold_bn_scales):
             def bnact(features, mode):
                 return SubsetBNAct(
                     features, mode=mode, momentum=0.9, eps=1e-5,

@@ -51,8 +51,8 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def _make_encoder(cfg: ModelConfig,
-                  generator: Optional[torch.Generator]) -> ResNetEncoder:
+def _make_encoder(cfg: ModelConfig, generator: Optional[torch.Generator],
+                  bn_axis_name: Optional[str] = None) -> ResNetEncoder:
     check_ported(cfg)
     return ResNetEncoder(
         stage_sizes=cfg.stage_sizes,
@@ -81,6 +81,7 @@ def _make_encoder(cfg: ModelConfig,
         remat_stages=tuple(cfg.remat_stages),
         mc_dropout=cfg.encoder == "dropout",
         drop_prob=cfg.drop_prob,
+        bn_axis_name=bn_axis_name,
         generator=generator,
     )
 
@@ -99,6 +100,7 @@ class ProjectionHead(nn.Module):
                  bn_grad_mode: str = "exact",
                  bn_st_surrogate: str = "affine",
                  bn_fused_vjp: bool = False,
+                 bn_axis_name: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
@@ -109,7 +111,8 @@ class ProjectionHead(nn.Module):
             return SubsetBatchNorm(
                 features, momentum=0.9, eps=1e-5, dtype=bn_dtype,
                 stats_fraction=bn_stats_fraction, grad_mode=bn_grad_mode,
-                st_surrogate=bn_st_surrogate, fused_vjp=bn_fused_vjp)
+                st_surrogate=bn_st_surrogate, fused_vjp=bn_fused_vjp,
+                axis_name=bn_axis_name)
 
         width = in_features
         for i in range(num_layers - 1):
@@ -139,7 +142,8 @@ class ProjectionHead(nn.Module):
 
 
 def _make_head(cfg: ModelConfig, in_features: int,
-               generator: Optional[torch.Generator]) -> ProjectionHead:
+               generator: Optional[torch.Generator],
+               bn_axis_name: Optional[str] = None) -> ProjectionHead:
     return ProjectionHead(
         in_features,
         feature_dim=cfg.feature_dim,
@@ -153,6 +157,7 @@ def _make_head(cfg: ModelConfig, in_features: int,
         bn_grad_mode=cfg.head_bn_grad_mode or cfg.bn_grad_mode,
         bn_st_surrogate=cfg.bn_st_surrogate,
         bn_fused_vjp=bool(cfg.bn_fused_vjp),
+        bn_axis_name=bn_axis_name,
         generator=generator,
     )
 
@@ -161,14 +166,19 @@ class SimCLR(nn.Module):
     """Encoder + projection head; ``forward(x, generator=None) -> (h, z)``
     for NCHW images (reference: models/simclr.py:43-46). ``generator``
     draws the MC-dropout masks, the encoder's first; a model without
-    dropout draws nothing from it."""
+    dropout draws nothing from it. ``bn_axis_name`` names the data axis
+    whose ranks the ``SubsetBatchNorm`` statistics of ``f`` and ``g`` are
+    averaged over (``parallel/explicit.py:make_explicit_model``)."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
         self.cfg = cfg
-        self.f = _make_encoder(cfg, generator)
-        self.g = _make_head(cfg, self.f.out_features, generator)
+        self.bn_axis_name = bn_axis_name
+        self.f = _make_encoder(cfg, generator, bn_axis_name)
+        self.g = _make_head(cfg, self.f.out_features, generator,
+                            bn_axis_name)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):

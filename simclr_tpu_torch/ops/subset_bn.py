@@ -38,15 +38,23 @@ def channel_shape(t: torch.Tensor) -> Tuple[int, ...]:
     return (1, -1) + (1,) * (t.dim() - 2)
 
 
-def bn_stats(x: torch.Tensor, shift: torch.Tensor, k: int
+def bn_stats(x: torch.Tensor, shift: torch.Tensor, k: int, mesh=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """float32 (mean, biased var) of x[:k] per channel: one pass around
-    ``shift`` (the running mean), as ``SubsetBatchNorm`` computes them."""
+    ``shift`` (the running mean), as ``SubsetBatchNorm`` computes them.
+    With a ``mesh`` (``parallel/mesh.py``) the two shifted moments are
+    averaged over its ranks, differentiably, before they combine (JAX's
+    ``pmean`` over the BN axis): the statistics of all ranks' rows."""
     xs = x[:k].to(torch.float32)
     red = reduce_dims(xs)
     d = xs - shift.view(channel_shape(xs))
     mean_d = d.mean(dim=red)
     mean2_d = d.square().mean(dim=red)
+    if mesh is not None:
+        from simclr_tpu_torch.parallel.mesh import all_reduce_mean
+
+        mean_d, mean2_d = all_reduce_mean(
+            torch.stack([mean_d, mean2_d]), mesh).unbind()
     mean = mean_d + shift
     var = (mean2_d - mean_d.square()).clamp_min(0.0)
     return mean, var

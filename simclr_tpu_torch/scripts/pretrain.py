@@ -7,15 +7,24 @@ versions). Run from the repository root:
     python -m simclr_tpu_torch.scripts.pretrain --dataset cifar10
 
 ``--accum_steps`` above 1 accumulates the gradients of that many
-micro-steps before each Adam step. Data parallelism (``--n_devices``
-above 1, ``--engine explicit``) is not ported yet and raises
-NotImplementedError naming its ROADMAP item.
+micro-steps before each Adam step. Data parallelism runs one process per
+device, started by torchrun, which sets the rank and the group's address:
+
+    torchrun --nproc_per_node 4 -m simclr_tpu_torch.scripts.pretrain \
+        --n_devices 4
+
+Under a group of more than one rank, or with ``--engine explicit`` (a
+one-rank group where ``--n_devices`` is 1, as JAX builds a one-device
+mesh for it), each rank runs the explicit data-parallel step
+(``parallel/explicit.py``) on its slice of the global batch; both engine
+names run that step. NCCL on CUDA, gloo with ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Optional, Sequence
 
 from simclr_tpu_torch.config import Config
@@ -53,11 +62,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--two_pass_views", action="store_true",
                    help="reference-parity sequential per-view forwards")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="devices in the data mesh (only 1 is ported)")
+                   help="devices in the data mesh: the ranks torchrun "
+                        "starts (default: its WORLD_SIZE)")
     p.add_argument("--engine", default="pjit",
                    choices=["pjit", "explicit"],
-                   help="collective strategy (only the single-device "
-                        "'pjit' engine is ported)")
+                   help="collective strategy; under a group both run the "
+                        "explicit step (hand-placed all-gather, BN "
+                        "statistics and gradient all-reduces)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--metrics_path", default=None,
                    help="append-only JSONL metrics log")
@@ -67,17 +78,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="'cuda' (the kernels) or 'cpu' (their plain "
                         "versions)")
     return p.parse_args(argv)
-
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise NotImplementedError for a flag whose path is not ported."""
-    if args.n_devices is not None and args.n_devices > 1:
-        raise NotImplementedError(
-            "--n_devices > 1: data parallelism is ROADMAP Queue A item 11")
-    if args.engine == "explicit":
-        raise NotImplementedError(
-            "--engine explicit: the shard_map engine is ROADMAP Queue A "
-            "item 11")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
@@ -103,9 +103,13 @@ def config_from_args(args: argparse.Namespace) -> Config:
     )
 
 
+def n_devices(args: argparse.Namespace) -> int:
+    """The mesh's size: ``--n_devices``, else the world torchrun set."""
+    return args.n_devices or int(os.environ.get("WORLD_SIZE", 1))
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
-    refuse_unported(args)
     cfg = config_from_args(args)
 
     import torch  # deferred so --help is fast
@@ -114,19 +118,32 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from simclr_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
+    n_dev = n_devices(args)
+    mesh = None
+    if n_dev > 1 or args.engine == "explicit":
+        from simclr_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(n_dev, device=dev)
+        dev = mesh.device
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    print(f"device: {name} | mesh: single-device | engine: {args.engine}")
+    if mesh is None or mesh.is_main:
+        print(f"device: {name} | mesh: "
+              f"{'single-device' if mesh is None else f'{mesh.size} ranks'}"
+              f" | engine: {args.engine}")
     result = pretrain(
-        cfg, resume_from=args.resume_training_path,
+        cfg, mesh=mesh, resume_from=args.resume_training_path,
         two_pass_views=args.two_pass_views,
         metrics_path=args.metrics_path,
         profile_dir=args.profile_dir,
         engine=args.engine,
         device=dev,
     )
-    print(f"done: {result.steps_per_sec:.2f} steps/sec | "
-          f"export: {result.export_path}")
+    if mesh is None or mesh.is_main:
+        print(f"done: {result.steps_per_sec:.2f} steps/sec | "
+              f"export: {result.export_path}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

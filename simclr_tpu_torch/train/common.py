@@ -247,15 +247,39 @@ def graphed_epoch(
     captures come right after the warm-up, before the first replay and
     also where the warm-up took every row: a capture waits for the
     device, a replay does not."""
-    dev = idx_mat.device
-    if (any(t.device != dev for t in inputs)
-            or generator.device.type != "cuda"):
+    if any(t.device != idx_mat.device for t in inputs):
         raise ValueError("a CUDA epoch takes its index matrix on the "
-                         "dataset's device and a CUDA generator")
-    steps = idx_mat.shape[0]
+                         "dataset's device")
+    return graphed_steps(graphs, state, inputs, iter(idx_mat),
+                         idx_mat.shape[0], idx_mat[0], generator,
+                         eager_step, body, schedule)
+
+
+def graphed_steps(
+    graphs: Dict[tuple, CapturedStep],
+    state: TrainState,
+    inputs: Sequence[torch.Tensor],
+    rows: Iterator[torch.Tensor],
+    steps: int,
+    like: torch.Tensor,
+    generator: torch.Generator,
+    eager_step: Callable[[TrainState, torch.Tensor],
+                         Tuple[TrainState, Metrics]],
+    body: Callable[[torch.Tensor], Tuple[Metrics, Any]],
+    schedule: Optional[GradAccumulation] = None,
+) -> Tuple[TrainState, Metrics]:
+    """``graphed_epoch`` over ``steps`` rows taken one at a time from the
+    iterator ``rows``, each a device tensor shaped like ``like``: index
+    rows, or whole batches streamed from the host (``train/streaming.py``,
+    with no ``inputs``). Each row is taken only when its step runs, on the
+    stream that runs it: the warm-up's side stream, or the current stream,
+    where it is copied into the captured step's static row."""
+    dev = like.device
+    if generator.device.type != "cuda":
+        raise ValueError("a captured step draws from a CUDA generator")
     out = torch.empty((2, steps), device=dev)
     key = (tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in inputs),
-           tuple(idx_mat.shape[1:]), idx_mat.dtype)
+           tuple(like.shape), like.dtype)
     kinds = (None,) if schedule is None else schedule.kinds
     first = 0
     if (key, kinds[0]) not in graphs:
@@ -265,7 +289,7 @@ def graphed_epoch(
         with torch.cuda.stream(side):
             while first < steps and (first < WARMUP_STEPS or not (
                     schedule is None or schedule.ready())):
-                state, metrics = eager_step(state, idx_mat[first])
+                state, metrics = eager_step(state, next(rows))
                 out[:, first] = torch.stack(metrics)
                 first += 1
         main.wait_stream(side)
@@ -276,15 +300,14 @@ def graphed_epoch(
         for kind in kinds:
             with (contextlib.nullcontext() if schedule is None
                   else schedule.capturing(kind)):
-                graphs[key, kind] = _capture(inputs, idx_mat, generator,
-                                             body)
+                graphs[key, kind] = _capture(inputs, like, generator, body)
     elif graphs[key, kinds[0]].generator is not generator:
         raise ValueError("the captured step draws from the generator "
                          "it was captured with")
     for i in range(first, steps):
         rec = graphs[key, None if schedule is None
                      else schedule.next_kind()]
-        rec.idx.copy_(idx_mat[i])
+        rec.idx.copy_(next(rows))
         rec.graph.replay()
         out[:, i].copy_(rec.metrics)
         if schedule is not None:
@@ -293,11 +316,11 @@ def graphed_epoch(
     return state, (out[0], out[1])
 
 
-def _capture(inputs: Sequence[torch.Tensor], idx_mat: torch.Tensor,
+def _capture(inputs: Sequence[torch.Tensor], like: torch.Tensor,
              generator: torch.Generator,
              body: Callable[[torch.Tensor], Tuple[Metrics, Any]]
              ) -> CapturedStep:
-    idx = torch.zeros_like(idx_mat[0])
+    idx = torch.zeros_like(like)
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(generator)
     with torch.cuda.graph(graph):

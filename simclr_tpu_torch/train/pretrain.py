@@ -19,6 +19,15 @@ graphed_epoch``, which the fine-tune engine shares); Adam is
 steps are captured, one that accumulates and one that also steps Adam,
 and the host picks one for each row. On the CPU ``train_epoch`` is the
 eager loop.
+
+Under a ``mesh`` (``parallel/mesh.py``: one process per device on
+``torch.distributed``) ``init_simclr`` takes JAX's rule of exact BN
+statistics on more than one device and replicates the state, and
+``build_engine`` and ``pretrain`` run the explicit data-parallel step of
+``parallel/explicit.py`` for both engine names: PyTorch has no
+partitioner, and JAX's own tests hold its two engines equal. Rank 0 alone
+writes checkpoints, the export, the metrics and the plots; a resume loads
+on every rank.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,10 +47,12 @@ from simclr_tpu_torch.models.simclr import SimCLR
 from simclr_tpu_torch.ops.augment import (
     ViewParams, augment_train_apply, sample_view_params)
 from simclr_tpu_torch.ops.kernels.ntxent import nt_xent_loss_fused, supports
-from simclr_tpu_torch.ops.losses import modified_contrastive_loss
+from simclr_tpu_torch.parallel.mesh import DATA_AXIS, put_replicated
+from simclr_tpu_torch.ops.losses import (
+    modified_contrastive_loss, nt_xent_loss)
 from simclr_tpu_torch.train.common import (
     CapturedStep, GradAccumulation, History, TrainState, adam_torch,
-    graphed_epoch, with_grad_accumulation)
+    graphed_epoch, graphed_steps, with_grad_accumulation)
 from simclr_tpu_torch.utils import checkpoint as ckpt_lib
 from simclr_tpu_torch.utils.device import resolve_device
 from simclr_tpu_torch.utils.profiling import MetricsLogger, annotate, trace
@@ -51,18 +62,18 @@ LossFn = Callable[[torch.Tensor, torch.Tensor],
                   Tuple[torch.Tensor, torch.Tensor]]
 PairParams = Tuple[ViewParams, ViewParams]
 
-_UNPORTED_MESH = ("data parallelism (mesh, engine='explicit') is not "
-                  "ported yet: ROADMAP Queue A item 11")
-
-
-def contrastive_fn(cfg: Config, device: "str | torch.device") -> LossFn:
+def contrastive_fn(cfg: Config, device: "str | torch.device",
+                   mesh=None) -> LossFn:
     """Loss selector (reference: utils/model_utils.py:90-98): the modified
     loss when asked for, otherwise NT-Xent through kernel B1, whose
     wrappers run the plain version on CPU tensors. On a CUDA device a shape
-    the kernel cannot run raises."""
+    the kernel cannot run raises. Under a mesh NT-Xent is the plain
+    version, as JAX keeps XLA's loss there."""
     t = cfg.train.temperature
     if cfg.train.modified_loss:
         return lambda z1, z2: modified_contrastive_loss(z1, z2, t)
+    if mesh is not None:
+        return lambda z1, z2: nt_xent_loss(z1, z2, t, normalize=True)
     n, d = cfg.train.batch_size, cfg.model.compressed_dim
     if torch.device(device).type == "cuda" and not supports(n, d):
         raise ValueError(f"NT-Xent kernel does not support batch {n} with "
@@ -79,22 +90,42 @@ def resolve_model_config(cfg: Config) -> Config:
     return cfg.replace(model=dataclasses.replace(m, **auto))
 
 
+def mesh_config(cfg: Config, mesh=None) -> Config:
+    """JAX's mesh rule (``simclr_tpu/train/pretrain.py:116-122``): exact
+    BN statistics on a mesh of more than one device, since a subset would
+    take each rank's leading rows."""
+    if (mesh is not None and mesh.size > 1
+            and cfg.model.bn_stats_fraction < 1.0):
+        return cfg.replace(model=dataclasses.replace(
+            cfg.model, bn_stats_fraction=1.0))
+    return cfg
+
+
 def init_simclr(cfg: Config, seed: int = 0,
-                device: "str | torch.device" = "cuda"
+                device: "str | torch.device" = "cuda", mesh=None
                 ) -> Tuple[SimCLR, TrainState, torch.optim.Optimizer]:
     """Build the model from ``seed`` (on the CPU, so the weights do not
     depend on the device), move it to ``device`` in channels_last, and
     wrap it with Adam (capturable on a CUDA device), accumulated over
-    ``cfg.train.accum_steps`` micro-steps where that is above 1."""
+    ``cfg.train.accum_steps`` micro-steps where that is above 1.
+
+    With a ``mesh`` the model lives on the mesh's device, its BN
+    statistics are averaged over the mesh's ranks
+    (``parallel/explicit.py:make_explicit_model``) and exact on more than
+    one rank (``mesh_config``), and the state is broadcast from rank 0."""
+    if mesh is not None:
+        device = mesh.device
     dev = resolve_device(device)
-    cfg = resolve_model_config(cfg)
+    cfg = mesh_config(resolve_model_config(cfg), mesh)
     gen = torch.Generator().manual_seed(seed)
-    model = SimCLR(cfg.model, generator=gen).to(
+    model = SimCLR(cfg.model, generator=gen,
+                   bn_axis_name=None if mesh is None else DATA_AXIS).to(
         dev, memory_format=torch.channels_last)
     optimizer = with_grad_accumulation(
         adam_torch(model.parameters(), cfg.optim.lr, cfg.optim.wt_decay,
                    capturable=dev.type == "cuda"),
         cfg.train.accum_steps)
+    put_replicated([model, optimizer], mesh)
     return model, TrainState(model, optimizer), optimizer
 
 
@@ -190,12 +221,16 @@ class PretrainEngine:
         return self.train_step_on_batch(
             state, images.index_select(0, idx), generator)
 
+    def graphed(self, images: torch.Tensor) -> bool:
+        """Whether an epoch over ``images`` replays a captured step."""
+        return images.device.type == "cuda"
+
     def train_epoch(self, state: TrainState, images: torch.Tensor,
                     idx_mat: torch.Tensor, generator: torch.Generator):
         """One step per row of ``idx_mat``; returns (state, (losses, accs))
         as device tensors of shape (steps,). On a CUDA device the steps
         are replays of one captured step (module docstring)."""
-        if images.device.type == "cuda":
+        if self.graphed(images):
             return self._graphed_epoch(state, images, idx_mat, generator)
         losses, accs = [], []
         for idx in idx_mat:
@@ -205,18 +240,44 @@ class PretrainEngine:
             accs.append(acc)
         return state, (torch.stack(losses), torch.stack(accs))
 
-    def _graphed_epoch(self, state, images, idx_mat, generator):
-        def body(idx):
-            batch = images.index_select(0, idx)
-            draws = self.sample_pair_params(generator, *batch.shape[:3])
-            return self._update(batch, draws, generator), draws
+    def _body(self, batch: torch.Tensor, generator: torch.Generator):
+        """The step as captured, on a static uint8 batch."""
+        draws = self.sample_pair_params(generator, *batch.shape[:3])
+        return self._update(batch, draws, generator), draws
 
-        schedule = (self.optimizer
-                    if isinstance(self.optimizer, GradAccumulation) else None)
+    def _schedule(self) -> Optional[GradAccumulation]:
+        return (self.optimizer
+                if isinstance(self.optimizer, GradAccumulation) else None)
+
+    def _graphed_epoch(self, state, images, idx_mat, generator):
         return graphed_epoch(
             self.graphs, state, (images,), idx_mat, generator,
             lambda st, row: self.train_step(st, images, row, generator),
-            body, schedule)
+            lambda idx: self._body(images.index_select(0, idx), generator),
+            self._schedule())
+
+    def train_stream(self, state: TrainState,
+                     batches: Iterable[torch.Tensor], steps: int,
+                     like: torch.Tensor, generator: torch.Generator):
+        """One step per uint8 NHWC device batch of ``batches`` (``steps``
+        of them, each shaped like ``like``), the host-streaming path's
+        epoch; returns (state, (losses, accs)) as device tensors of shape
+        (steps,). On a CUDA device the steps are replays of one captured
+        step, as in ``train_epoch``: each batch is copied into the graph's
+        static batch just before its replay."""
+        if self.graphed(like):
+            return graphed_steps(
+                self.graphs, state, (), iter(batches), steps, like,
+                generator,
+                lambda st, b: self.train_step_on_batch(st, b, generator),
+                lambda b: self._body(b, generator), self._schedule())
+        losses, accs = [], []
+        for batch in batches:
+            state, (loss, acc) = self.train_step_on_batch(state, batch,
+                                                          generator)
+            losses.append(loss)
+            accs.append(acc)
+        return state, (torch.stack(losses), torch.stack(accs))
 
     @torch.no_grad()
     def eval_step_on_views(self, v1: torch.Tensor, v2: torch.Tensor,
@@ -257,7 +318,18 @@ class PretrainEngine:
 
 def build_engine(cfg: Config, model: SimCLR,
                  optimizer: torch.optim.Optimizer,
-                 two_pass_views: bool = False) -> PretrainEngine:
+                 two_pass_views: bool = False, mesh=None) -> PretrainEngine:
+    """The one-device engine, or under a ``mesh`` the explicit
+    data-parallel one (module docstring); ``model`` then comes from
+    ``init_simclr(mesh=...)``."""
+    if mesh is not None:
+        if two_pass_views:
+            raise ValueError("a mesh does not implement two_pass_views "
+                             "(a single-device parity mode)")
+        from simclr_tpu_torch.parallel.explicit import build_explicit_engine
+
+        return build_explicit_engine(mesh_config(cfg, mesh), model,
+                                     optimizer, mesh)
     device = next(model.parameters()).device
     return PretrainEngine(cfg, model, optimizer, contrastive_fn(cfg, device),
                           two_pass_views)
@@ -331,19 +403,30 @@ def pretrain(
     ``simclr_..._temp{T}.pt`` in ``cfg.out_dir``, loss plots, and a
     ``torch.profiler`` trace of the second epoch into ``profile_dir``.
     ``init_variables`` seeds the weights from JAX-layout numpy
-    ``{'params', 'batch_stats'}`` trees. ``mesh`` and
-    ``engine='explicit'`` (data parallelism) raise NotImplementedError."""
-    if mesh is not None or engine == "explicit":
-        raise NotImplementedError(_UNPORTED_MESH)
-    if engine != "pjit":
+    ``{'params', 'batch_stats'}`` trees.
+
+    ``mesh`` (``parallel/mesh.py:make_mesh``): data parallelism, one call
+    per rank, each with the whole dataset on its device; ``engine``
+    'pjit' and 'explicit' both run the explicit step
+    (``parallel/explicit.py``), and 'explicit' needs a mesh, as in JAX
+    (a one-rank mesh is a group of one). Rank 0 alone logs and writes the
+    checkpoints, the export, the metrics, the plots and the profile; a
+    resume loads on every rank, and the ranks meet at the end."""
+    if engine not in ("pjit", "explicit"):
         raise ValueError(f"unknown engine {engine!r} "
                          "(expected 'pjit' or 'explicit')")
-    dev = resolve_device(device)
+    if engine == "explicit" and mesh is None:
+        raise ValueError("engine='explicit' requires a device mesh")
+    main = mesh is None or mesh.is_main
+    if not main:
+        log, save_plots, metrics_path, profile_dir = (
+            (lambda _: None), False, None, None)
+    dev = resolve_device(device if mesh is None else mesh.device)
     tcfg = cfg.train
     if split is None:
         split = make_split(cfg, "pretrain", dev)
-    model, state, opt = init_simclr(cfg, tcfg.seed, dev)
-    eng = build_engine(cfg, model, opt, two_pass_views)
+    model, state, opt = init_simclr(cfg, tcfg.seed, dev, mesh)
+    eng = build_engine(cfg, model, opt, two_pass_views, mesh)
     if init_variables is not None:
         model.load_state_dict(simclr_from_jax(init_variables["params"],
                                               init_variables["batch_stats"]))
@@ -424,7 +507,8 @@ def pretrain(
                 metrics.log(total_steps, epoch=epoch + 1,
                             valid_loss=v_loss, valid_acc=v_acc)
 
-        if save_checkpoints and (epoch + 1) % tcfg.save_ckpt_every == 0:
+        if (save_checkpoints and main
+                and (epoch + 1) % tcfg.save_ckpt_every == 0):
             path = ckpt_lib.save_checkpoint(
                 cfg.ckpt_dir, epoch, state, history.to_dict(),
                 generator=gen)
@@ -434,8 +518,9 @@ def pretrain(
     if export_path is not None or tcfg.n_epoch > start_epoch:
         final_export = export_path or os.path.join(
             cfg.out_dir, f"simclr_{_run_tag(cfg)}.pt")
-        ckpt_lib.export_model(final_export, model, cfg.to_json())
-        log(f"exported model: {final_export}")
+        if main:
+            ckpt_lib.export_model(final_export, model, cfg.to_json())
+            log(f"exported model: {final_export}")
 
     if save_plots and history.loss["train"]:
         # End-of-training loss/accuracy PNGs, like the reference
@@ -456,6 +541,10 @@ def pretrain(
 
     if metrics:
         metrics.close()
+    if mesh is not None:
+        # Every rank returns after rank 0's files exist (a resume reads
+        # them on every rank).
+        torch.distributed.barrier(group=mesh.group)
     sps = total_steps / t_train if t_train > 0 else 0.0
     warm = epoch_secs[1:] or epoch_secs
     steady = (steps_per_epoch / float(np.median(warm))) if warm else sps

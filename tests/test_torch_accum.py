@@ -62,6 +62,16 @@ TINY = dict(feature_dim=32, compressed_dim=16, stage_sizes=(1, 1, 1, 1),
             width=4, compute_dtype="float32", bn_dtype="float32")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's tensors here are small: PyTorch's intra-op thread pool
+    costs more than it gives, most of all beside other test processes."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _flat(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -83,14 +93,19 @@ def test_accumulated_adam_matches_optax_multisteps(k):
     tx = optax.MultiSteps(jcommon.adam_torch(1e-3, 1e-2), every_k_schedule=k)
     jp = jnp.asarray(p)
     opt_state = tx.init(jp)
+
+    @jax.jit
+    def update(g_, state_, p_):
+        upd, state_ = tx.update(g_, state_, p_)
+        return p_ + upd, state_
+
     tp = torch.nn.Parameter(torch.from_numpy(p.copy()))
     opt = tcommon.with_grad_accumulation(tcommon.adam_torch([tp], 1e-3, 1e-2),
                                          k)
     assert isinstance(opt, tcommon.GradAccumulation)
     for i, g in enumerate(grads):
         before = tp.detach().clone()
-        upd, opt_state = tx.update(jnp.asarray(g), opt_state, jp)
-        jp = jp + upd
+        jp, opt_state = update(jnp.asarray(g), opt_state, jp)
         tp.grad = torch.from_numpy(g.copy())
         opt.step()
         np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp),

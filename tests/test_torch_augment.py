@@ -12,6 +12,8 @@ The sampling side: the port's ``torch.Generator`` draws and JAX's draws have
 the same moments, within five standard errors of the difference.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +33,18 @@ def _t(x):
 
 
 def jax_view_params(key, n, in_h, in_w, aug=AUG):
-    """The draws augment_train(key, ..., use_pallas_color=False) makes."""
+    """The draws augment_train(key, ..., use_pallas_color=False) makes, as
+    the port's ViewParams. Compiled once a shape, as the JAX engines draw
+    them inside their jitted steps (eager, each op compiles on its first
+    call; the crop boxes can differ from the compiled ones by an ulp)."""
+    boxes, flip, factors, schedule, sigma = _jax_draws(key, n, in_h, in_w,
+                                                       aug)
+    return ta.ViewParams(tuple(_t(b) for b in boxes), _t(flip), _t(factors),
+                         _t(schedule).to(torch.int32), _t(sigma))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+def _jax_draws(key, n, in_h, in_w, aug):
     k_crop, k_jit, k_gray, k_blur = jax.random.split(key, 4)
     k_box, k_flip = jax.random.split(k_crop)
     boxes = ja.sample_crop_boxes(k_box, n, in_h, in_w, aug.crop_scale,
@@ -57,8 +70,7 @@ def jax_view_params(key, n, in_h, in_w, aug=AUG):
         jax.random.randint(k_perm, (n,), 0, len(ja._PERMS))]
     sigma = jax.random.uniform(k_blur, (n,), minval=aug.blur_sigma[0],
                                maxval=aug.blur_sigma[1])
-    return ta.ViewParams(tuple(_t(b) for b in boxes), _t(flip), _t(factors),
-                         _t(schedule).to(torch.int32), _t(sigma))
+    return boxes, flip, factors, schedule, sigma
 
 
 def _u8(n, size, seed):

@@ -60,6 +60,17 @@ from simclr_tpu_torch.ops.kernels import bn_relu as tk
 from simclr_tpu_torch.utils.weights import simclr_to_jax
 from test_torch_pretrain import _run_both
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's tensors here are small: PyTorch's intra-op thread pool
+    costs more than it gives, most of all beside other test processes."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 EPS = 1e-5
 SHAPE = (256, 4, 4, 128)   # rows 4096 -> a 4-step Pallas grid in f32
 K = 32

@@ -29,6 +29,17 @@ from simclr_tpu_torch.utils import checkpoint as ck
 from simclr_tpu_torch.utils.profiling import read_metrics
 from simclr_tpu_torch.utils.weights import simclr_from_jax, simclr_to_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's tensors here are small: PyTorch's intra-op thread pool
+    costs more than it gives, most of all beside other test processes."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 TINY = dict(feature_dim=32, compressed_dim=16, stage_sizes=(1, 1, 1, 1),
             width=4, compute_dtype="float32", bn_dtype="float32")
 N_IMAGES, BATCH, SIZE = 80, 16, 16

@@ -52,6 +52,17 @@ from simclr_tpu_torch.ops.kernels import conv64 as tc64
 from simclr_tpu_torch.ops.kernels import winograd as twg
 from simclr_tpu_torch.utils.weights import simclr_to_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's tensors here are small: PyTorch's intra-op thread pool
+    costs more than it gives, most of all beside other test processes."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 ULP = 2.0 ** -7
 
 

@@ -1,7 +1,8 @@
 """The port never imports JAX or the JAX package: every module of
 ``simclr_tpu_torch`` imports in a fresh interpreter in which ``jax``,
 ``flax``, ``optax``, ``orbax``, ``msgpack`` and ``simclr_tpu`` cannot be
-imported."""
+imported (and, here, with no CUDA). The port's C++ data plane is its own
+file, not a path into the JAX package."""
 
 import pkgutil
 import subprocess
@@ -46,7 +47,9 @@ def test_every_port_module_imports_without_jax():
                  "train.lin_eval", "train.ssl", "scripts.lin_eval",
                  "scripts.train_ssl", "models.mine", "train.supervised",
                  "train.mine", "scripts.train_supervised",
-                 "scripts.train_mine", "ops.foldconv", "ops.subset_wgrad"):
+                 "scripts.train_mine", "ops.foldconv", "ops.subset_wgrad",
+                 "data.native", "train.streaming", "parallel.mesh",
+                 "parallel.explicit", "parallel.launch", "entry"):
         assert f"simclr_tpu_torch.{name}" in modules
     root = Path(simclr_tpu_torch.__file__).resolve().parents[1]
     result = subprocess.run(
@@ -55,3 +58,17 @@ def test_every_port_module_imports_without_jax():
         cwd=root, capture_output=True, text=True, timeout=120)
     assert result.returncode == 0, result.stderr
     assert result.stdout.split()[-1] == str(len(modules))
+
+
+def test_the_data_plane_source_is_the_ports_own_file():
+    from simclr_tpu_torch.data import native
+
+    root = Path(simclr_tpu_torch.__file__).resolve().parents[1]
+    src = native.SRC
+    assert src.is_file() and not src.is_symlink()
+    assert src.resolve().parent == root / "simclr_tpu_torch/data/native"
+    assert "simclr_tpu/" not in str(src.resolve().relative_to(root))
+    jax_src = root / "simclr_tpu/data/native/dataplane.cpp"
+    assert not src.samefile(jax_src)
+    # Nothing is built beside the source.
+    assert native.BUILD_DIR == root / "simclr_tpu_torch/_build"

@@ -35,6 +35,17 @@ from simclr_tpu_torch.config import ModelConfig
 from simclr_tpu_torch.models.simclr import SimCLR
 from simclr_tpu_torch.utils.weights import simclr_from_jax, simclr_to_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's tensors here are small: PyTorch's intra-op thread pool
+    costs more than it gives, most of all beside other test processes."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 SMALL = dict(feature_dim=512, stage_sizes=(1, 1, 1, 1), width=16,
              compute_dtype="float32", bn_dtype="float32")
 N2, SIZE = 80, 16

@@ -69,6 +69,16 @@ ENC = dict(stage_sizes=(2, 2), width=8, low_quality_img=True,
            bn_stats_fraction=0.25)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's tensors here are small: PyTorch's intra-op thread pool
+    costs more than it gives, most of all beside other test processes."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _flat(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -105,10 +115,18 @@ def test_conv_subset_wgrad_matches_jax(stride):
     k = subset_rows(N2, 0.3, 4)
     assert k == 28
     pad = ((1, 1), (1, 1))
-    y, vjp = jax.vjp(lambda x_, w_: jswg.conv_subset_wgrad(
-        x_, w_, (stride, stride), pad, k), jnp.asarray(x), jnp.asarray(w))
-    g = rng.standard_normal(y.shape).astype(np.float32)
-    jdx, jdw = vjp(jnp.asarray(g))
+
+    def conv(x_, w_):
+        return jswg.conv_subset_wgrad(x_, w_, (stride, stride), pad, k)
+
+    @jax.jit
+    def oracle(x_, w_, g_):
+        y_, vjp = jax.vjp(conv, x_, w_)
+        return (y_,) + vjp(g_)
+
+    g = rng.standard_normal(jax.eval_shape(conv, x, w).shape).astype(
+        np.float32)
+    y, jdx, jdw = oracle(x, w, g)
 
     tx = _nchw(x).requires_grad_()
     tw = _oihw(w).requires_grad_()
@@ -164,10 +182,15 @@ def test_conv_subset_bn_matches_jax(dtype, ksize):
         return jfold.conv_subset_bn(((pad, pad), (pad, pad)), k, 1e-5, x_,
                                     w_, ga, be, sh)
 
-    (jout, jmean, jvar), vjp = jax.vjp(
-        fn, jnp.asarray(x).astype(jdt), jnp.asarray(w), jnp.asarray(gamma),
-        jnp.asarray(beta), jnp.asarray(shift))
-    jgrads = vjp((jnp.asarray(g).astype(jdt), jnp.zeros(f), jnp.zeros(f)))
+    def oracle(*args):
+        outs, vjp = jax.vjp(fn, *args[:-1])
+        return outs, vjp((args[-1], jnp.zeros(f), jnp.zeros(f)))
+
+    # Without excess precision XLA rounds every bf16 op as eager JAX does.
+    (jout, jmean, jvar), jgrads = jax.jit(
+        oracle, compiler_options={"xla_allow_excess_precision": False})(
+        jnp.asarray(x).astype(jdt), w, gamma, beta, shift,
+        jnp.asarray(g).astype(jdt))
 
     tx = _nchw(x).to(tdt).requires_grad_()
     tw = _oihw(w).requires_grad_()
@@ -339,15 +362,20 @@ def test_subset_bn_act_unfused_matches_jax(mode, monkeypatch):
                            stats_fraction=0.25)
     args = (jnp.asarray(x),) + ((jnp.asarray(skip),)
                                 if mode == "add_relu" else ())
-    variables = jm.init(jax.random.key(0), *args)
+    variables = jax.jit(jm.init)(jax.random.key(0), *args)
     stats = jax.tree.map(lambda v: v + 0.1, variables["batch_stats"])
 
     def f(p, *a):
         y, up = jm.apply({"params": p, "batch_stats": stats}, *a,
                          mutable=["batch_stats"])
         return y, up["batch_stats"]
-    (jy, jst), vjp = jax.vjp(f, variables["params"], *args)
-    jgrads = vjp((jnp.asarray(g), jax.tree.map(jnp.zeros_like, jst)))
+
+    @jax.jit
+    def oracle(p, g_, *a):
+        (y, st), vjp = jax.vjp(f, p, *a)
+        return (y, st), vjp((g_, jax.tree.map(jnp.zeros_like, st)))
+
+    (jy, jst), jgrads = oracle(variables["params"], jnp.asarray(g), *args)
 
     tm = tnorm.SubsetBNAct(8, mode=mode, dtype=torch.float32,
                            stats_fraction=0.25, fused=False)

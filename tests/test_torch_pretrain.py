@@ -38,6 +38,17 @@ from simclr_tpu_torch.train.pretrain import build_engine, init_simclr
 from simclr_tpu_torch.utils.weights import simclr_to_jax
 from test_torch_augment import jax_view_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's tensors here are small: PyTorch's intra-op thread pool
+    costs more than it gives, most of all beside other test processes."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 SMALL = dict(feature_dim=512, stage_sizes=(1, 1, 1, 1), width=16)
 F32 = dict(compute_dtype="float32", bn_dtype="float32")
 BATCH, STEPS = 40, 3

@@ -331,12 +331,16 @@ def test_epoch_seed_depends_on_seed_and_epoch_alone():
 
 def test_entry_points_default_to_cuda_and_refuse_what_is_not_ported(
         monkeypatch):
+    """Nothing of ``pretrain`` is unported since data parallelism came
+    (``tests/test_torch_parallel.py``): the default device needs a GPU,
+    the explicit engine needs a mesh (as in JAX), and an unknown engine
+    name is refused."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpre.pretrain(_tiny_config())
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        tpre.pretrain(_tiny_config(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpre.init_simclr(_tiny_config())
+    with pytest.raises(ValueError, match="requires a device mesh"):
         tpre.pretrain(_tiny_config(), engine="explicit", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         tpre.pretrain(_tiny_config(), engine="other", device="cpu")
@@ -358,23 +362,26 @@ def test_cli_help(capsys):
     (["--n_devices", "2"], "item 11"), (["--engine", "explicit"], "item 11"),
     (["--accum_steps", "2"], "item 3")])
 def test_cli_refuses_unported_flags(flags, item):
-    """Data parallelism (ROADMAP Queue A item 11) is refused. Gradient
-    accumulation (item 3) is ported: the CLI takes ``--accum_steps`` and
-    the config carries it."""
+    """No flag is refused any more: data parallelism (ROADMAP Queue A item
+    11) and gradient accumulation (item 3) are ported. ``--n_devices 2``
+    needs two ranks, which torchrun starts: a lone process refuses it
+    before it builds anything. ``--engine explicit`` parses (one rank runs
+    a group of one; ``tests/test_torch_parallel.py`` runs the step)."""
+    args = cli.parse_args(flags + ["--device", "cpu"])
     if item == "item 3":
-        args = cli.parse_args(flags + ["--device", "cpu"])
-        cli.refuse_unported(args)
         assert cli.config_from_args(args).train.accum_steps == 2
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(flags + ["--device", "cpu"])
+    elif flags[0] == "--engine":
+        assert args.engine == "explicit" and cli.n_devices(args) == 1
+    else:
+        assert cli.n_devices(args) == 2
+        with pytest.raises(ValueError, match="world of 2 ranks"):
+            cli.main(flags + ["--device", "cpu"])
 
 
 def test_cli_takes_the_dropout_encoder():
     """``--encoder_model dropout`` is ported: no refusal, and the config
     carries it."""
     args = cli.parse_args(["--encoder_model", "dropout"])
-    cli.refuse_unported(args)
     assert cli.config_from_args(args).model.encoder == "dropout"
 
 
