@@ -158,6 +158,26 @@ Phases, each printed as one line with its result and wall time:
    busy share; (b) two gloo ranks in two processes on this card, width
    16, float32, one explicit SGD step against one process on the global
    batch.
+24. analysis: the representation analysis of the pretrain phase's export
+   at full width (``scripts/analysis.py`` without the figures): the
+   similarity metrics of h at batch 256 over 4 batches (B2 twice a
+   batch), then features, the flipped-view analogy and the one-batch
+   gradient flow (B1f and B1b once, B2 twice), all counted; the model's
+   parameters and buffers bit for bit as before; ``_pairwise_metrics``
+   on the card against the CPU on the same features; pos_cos > neg_cos;
+   the metric pass's images/s.
+25. serving: ``export_forward`` of the export's eval forward on the card
+   at batch 512 and ``load_forward``: the artifact against the eager
+   forward (relative norm within 1e-2), no kernel launched, both
+   forwards' images/s and the artifact's size; the three kernel flags
+   refused by name.
+26. stl10: ``Config.for_dataset('stl10')`` at full width (the 7x7
+   stride-2 stem, the max-pool, the 9-tap blur), batch 256, 2,048
+   synthetic 96x96 images: ``pretrain()`` for 2 epochs of graph replays
+   (B1f/B1b 1 and B2 2 in each eager step and the capture, B1f 1 and B2
+   2 in each validation step, counted), finite losses, steps/s, busy
+   share and peak memory; augmented pairs/s at 96x96; a short linear
+   evaluation.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -173,7 +193,8 @@ exits non-zero without that line; so does a run without a GPU or outside
 the repository. Writes nothing but the kernel build under
 ``simclr_tpu_torch/_build/`` and, in a temporary directory that it
 removes at the end, the pretrain phase's checkpoints and the export that
-the downstream phases read.
+the downstream phases read, the serving phase's artifact and the stl10
+phase's export.
 """
 
 from __future__ import annotations
@@ -3110,6 +3131,335 @@ def mine_phase(torch, smi, pre):
 
 
 # ---------------------------------------------------------------------------
+# Representation analysis, the serving artifact and STL-10 at 96x96.
+# ---------------------------------------------------------------------------
+
+# _pairwise_metrics of the same features on the card and on the CPU:
+# float32 on both, reductions in other orders. NMI buckets each value by
+# a float32 division and a truncation: a value within an ulp of a bucket
+# edge may land on the other side, which moves one of 2,048 counts.
+_METRIC_ATOL = {"nmi": 2e-3}
+_METRIC_TOL = 1e-4
+# The loaded artifact against the eager forward, in relative norm: both
+# run the same bf16 cuDNN convolutions and BN passes, but the exported
+# graph may pick other algorithms.
+_SERVE_REL = 1e-2
+
+
+def _load_export(torch, path, cfg=None):
+    from simclr_tpu_torch.config import Config
+    from simclr_tpu_torch.models.simclr import SimCLR
+    from simclr_tpu_torch.train.pretrain import resolve_model_config
+    from simclr_tpu_torch.utils.checkpoint import load_pretrained
+
+    sd, _ = load_pretrained(path)
+    model = SimCLR(resolve_model_config(cfg or Config()).model)
+    model.load_state_dict(sd)
+    return model.to("cuda", memory_format=torch.channels_last)
+
+
+def _expect_counts(counts, want, what):
+    for name, count in counts.items():
+        if count != want.get(name, 0):
+            raise AssertionError(f"{what}: {name} launched {count} times, "
+                                 f"expected {want.get(name, 0)}: {counts}")
+
+
+@phase("analysis")
+def analysis_phase(torch, smi, pre):
+    """The representation analysis of the pretrain phase's export at full
+    width on its CIFAR-shaped images (``scripts/analysis.py``'s work
+    without the figures): ``get_similarity_metrics`` of h at batch 256
+    over 4 batches of the 3,277 training images (B2 twice a batch, no
+    other kernel); then ``extract_features`` of h over the 819, the
+    flipped-view analogy and the one-batch gradient flow of 256 training
+    images (B1f and B1b once, B2 twice). The model's parameters and
+    buffers must be bit for bit what they were; ``_pairwise_metrics`` of
+    one batch's features on the card must match the CPU's; positives must
+    be closer than negatives."""
+    import numpy as np
+    from simclr_tpu_torch.config import Config
+    from simclr_tpu_torch.ops.augment import augment_train_pair
+    from simclr_tpu_torch.scripts.analysis import grad_flow
+    from simclr_tpu_torch.train.lin_eval import extract_features
+    from simclr_tpu_torch.utils.metrics import (
+        _METRIC_KEYS, _pairwise_metrics, contrastive_feature_fn,
+        get_representation_analogy, get_similarity_metrics)
+
+    cfg = Config()
+    train, test = pre["split"].train, pre["split"].val
+    model = _load_export(torch, pre["export"])
+    model.train()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    fn = contrastive_feature_fn(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    start = time.perf_counter()
+    metrics = get_similarity_metrics(fn, train, cfg, batch_size=256,
+                                     n_batches=4)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - start
+    _expect_counts(read_counts(), {"color": 8}, "similarity metrics")
+    # The same pass again, warm (the first call picks cuDNN's algorithms
+    # for the new shapes).
+    start = time.perf_counter()
+    get_similarity_metrics(fn, train, cfg, batch_size=256, n_batches=4)
+    torch.cuda.synchronize()
+    metric_s = time.perf_counter() - start
+    if not all(v.shape == (1024,) and np.isfinite(v).all()
+               for v in metrics.values()):
+        raise AssertionError("similarity metrics: shapes or values")
+    pos, neg = metrics["pos_cos"].mean(), metrics["neg_cos"].mean()
+    if not pos > neg:
+        raise AssertionError(f"pos_cos {pos:.4f} <= neg_cos {neg:.4f}")
+
+    reset_counts()
+    start = time.perf_counter()
+    feats, _ = extract_features(model, test, cfg)
+    analogy = get_representation_analogy(fn, fn, test, cfg)
+    grads, grad_loss = grad_flow(cfg, model, train.images[:256])
+    torch.cuda.synchronize()
+    rest_s = time.perf_counter() - start
+    _expect_counts(read_counts(), {"ntxent_fwd": 1, "ntxent_bwd": 1,
+                                   "color": 2},
+                   "features, analogy and gradient flow")
+    after = model.state_dict()
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    if changed or not model.training:
+        raise AssertionError(f"the analysis changed {changed[:5]}")
+    if not (all(np.isfinite(g).all() for g in grads.values())
+            and math.isfinite(grad_loss) and feats.shape == (test.n, 2048)
+            and all(math.isfinite(v) for v in analogy.values())):
+        raise AssertionError("features, analogy or gradients not finite")
+
+    # One batch's metrics on the card against the CPU, same features.
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        v1, v2 = augment_train_pair(gen, train.images[:256], cfg.augment,
+                                    cfg.dataset)
+        f1, f2 = fn(v1, gen), fn(v2, gen)
+    perm = torch.randperm(256, generator=gen, device="cuda")
+    on_card = _pairwise_metrics(f1, f2, perm)
+    on_cpu = _pairwise_metrics(f1.cpu(), f2.cpu(), perm.cpu())
+    worst = {}
+    for k in _METRIC_KEYS:
+        a, b = on_card[k].cpu(), on_cpu[k]
+        atol = _METRIC_ATOL.get(k.split("_")[1], _METRIC_TOL)
+        worst[k] = (a - b).abs().max().item()
+        if not torch.allclose(a, b, rtol=_METRIC_TOL, atol=atol):
+            raise AssertionError(f"{k} on the card {worst[k]:.2e} off the "
+                                 f"CPU's")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  analysis: similarity metrics {1024 / metric_s:.1f} images/s "
+          f"(4 batches of 256, two views each, {metric_s:.3f} s warm; "
+          f"{1024 / first_s:.1f} in the first pass); "
+          f"features, analogy and gradient flow {rest_s:.3f} s; peak "
+          f"{peak:.2f} GiB allocated; on {smi}")
+    print(f"  analysis: pos/neg cos {pos:.4f} / {neg:.4f}, analogy "
+          f"{ {k: round(v, 5) for k, v in analogy.items()} }, gradient-flow"
+          f" loss {grad_loss:.4f} over {len(grads)} leaves; card vs CPU "
+          f"max |diff| {max(worst.values()):.2e}")
+    del model, fn, f1, f2
+    _release(torch, {})
+    return {"summary": f"h metrics over 1,024 images (B2 8), pos_cos "
+                       f"{pos:.4f} > neg_cos {neg:.4f}; features, analogy "
+                       f"and gradient flow (B1f 1, B1b 1, B2 2); model "
+                       f"state bit for bit; _pairwise_metrics card vs CPU "
+                       f"within {_METRIC_TOL} (nmi "
+                       f"{_METRIC_ATOL['nmi']}): max "
+                       f"{max(worst.values()):.2e}"}
+
+
+@phase("serving")
+def serving_phase(torch, smi, pre, tmp):
+    """``export_forward`` of the export's full-width eval forward on the
+    card for NHWC batches of 512, ``load_forward``, and the loaded
+    artifact against the eager forward on 512 test views (relative norm
+    within ``_SERVE_REL``); both forwards' images/s and the artifact's
+    size; no kernel of the port runs on the default eval path (counted).
+    Each kernel flag (``conv64_pallas``, ``winograd_conv2``,
+    ``fuse_identity_blocks``) must be refused by name."""
+    import os
+    from simclr_tpu_torch.config import CIFAR10, ModelConfig
+    from simclr_tpu_torch.models.simclr import SimCLR
+    from simclr_tpu_torch.ops.augment import augment_test
+    from simclr_tpu_torch.utils.serving import (
+        KERNEL_FLAGS, export_forward, load_forward)
+
+    model = _load_export(torch, pre["export"])
+    path = f"{tmp}/forward.pt2"
+    x = augment_test(pre["split"].train.images[:512], CIFAR10)
+    reset_counts()
+    start = time.perf_counter()
+    export_forward(path, model, tuple(x.shape))
+    export_s = time.perf_counter() - start
+    start = time.perf_counter()
+    served = load_forward(path)
+    load_s = time.perf_counter() - start
+    model.eval()
+
+    def eager():
+        with torch.no_grad():
+            return model(x.permute(0, 3, 1, 2), None)
+
+    def loaded():
+        with torch.no_grad():
+            return served(x)
+
+    (h, z), (sh, sz) = eager(), loaded()
+    torch.cuda.synchronize()
+    _expect_counts(read_counts(), {}, "export and forwards")
+    rel = max(_rel_norm(sh, h), _rel_norm(sz, z))
+    err = max((sh - h).abs().max().item(), (sz - z).abs().max().item())
+    if not (rel <= _SERVE_REL and sh.shape == h.shape
+            and sz.shape == z.shape):
+        raise AssertionError(f"the artifact is {rel:.2e} off the eager "
+                             f"forward")
+    eager_ms = median_ms(torch, eager, iters=10)
+    served_ms = median_ms(torch, loaded, iters=10)
+    size_mb = os.path.getsize(path) / 1e6
+    refused = []
+    for flag in KERNEL_FLAGS:
+        tiny = SimCLR(ModelConfig(stage_sizes=(1, 1, 1, 1), width=16,
+                                  **{flag: True}))
+        try:
+            export_forward(f"{tmp}/refused.pt2", tiny, (4, 32, 32, 3))
+        except ValueError as e:
+            if flag not in str(e):
+                raise
+            refused.append(flag)
+        else:
+            raise AssertionError(f"{flag} was exported")
+    print(f"  serving: export {export_s:.1f} s, load {load_s:.1f} s, "
+          f"artifact {size_mb:.1f} MB; eager {512e3 / eager_ms:.1f} "
+          f"images/s ({eager_ms:.3f} ms a batch of 512), artifact "
+          f"{512e3 / served_ms:.1f} images/s ({served_ms:.3f} ms); on {smi}")
+    del model, served, h, z, sh, sz
+    _release(torch, {})
+    return {"summary": f"batch 512, h and z of the loaded artifact "
+                       f"{rel:.2e} off the eager forward in relative norm "
+                       f"(max |diff| {err:.2e}; tol {_SERVE_REL}); no kernel"
+                       f" launched; refused by name: {', '.join(refused)}"}
+
+
+def _epoch_categories(torch, prof, span, steps):
+    """Device ms a step by kernel category (``_CATEGORIES``) of the
+    kernels that started inside the annotation ``span``, over ``steps``
+    steps."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    t0, t1 = next((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == DeviceType.CPU and e.name == span)
+    by_name = {}
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and t0 <= e.time_range.start
+                <= t1 and not e.name.startswith(("train_epoch ",
+                                                 "eval_epoch "))):
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    return ", ".join(f"{c} {ms / steps:.2f}"
+                     for c, ms in _by_category(by_name))
+
+
+@phase("stl10")
+def stl10_phase(torch, smi, tmp):
+    """STL-10 at 96x96 (``Config.for_dataset('stl10')``: the 7x7 stride-2
+    stem, the 3x3 max-pool, the 9-tap blur) at full width and batch 256 on
+    2,048 synthetic 96x96 images on the card (80/20 split: 6 steps an
+    epoch and a one-batch validation epoch): ``pretrain()`` for 2 epochs
+    under torch.profiler, every step a graph replay but the warm-up ones.
+    The counts: B1f and B1b once and B2 twice in each eager step and the
+    capture, B1f once and B2 twice in each validation step; every loss
+    finite. Then augmented pairs/s at 96x96 (``scripts/stl10_artifact.
+    py``: 20 calls, one synchronisation, median of 3; B2 160 launches in
+    all) and a short ``linear_evaluation`` (top-1 a floor on synthetic
+    data)."""
+    from torch.profiler import ProfilerActivity, profile
+    from simclr_tpu_torch.config import Config
+    from simclr_tpu_torch.data.datasets import synthetic_dataset
+    from simclr_tpu_torch.data.pipeline import (
+        DeviceDataset, Split, split_indices)
+    from simclr_tpu_torch.ops.augment import gaussian_kernel_size
+    from simclr_tpu_torch.scripts.stl10_artifact import aug_pairs_per_sec
+    from simclr_tpu_torch.train.common import WARMUP_STEPS
+    from simclr_tpu_torch.train.lin_eval import linear_evaluation
+    from simclr_tpu_torch.train.pretrain import pretrain
+
+    base = Config.for_dataset("stl10")
+    cfg = base.replace(
+        train=dataclasses.replace(base.train, n_epoch=2, batch_size=256,
+                                  save_ckpt=False, n_epoch_lin_eval=2),
+        out_dir=f"{tmp}/stl10")
+    if (cfg.model.low_quality_img or cfg.dataset.img_size != 96
+            or gaussian_kernel_size(96) != 9):
+        raise AssertionError("not the STL-10 configuration")
+    images, labels = synthetic_dataset(2048, img_size=96, seed=0)
+    tr, va = split_indices(2048, 0.2)
+    split = Split(DeviceDataset.from_numpy(images[tr], labels[tr], "cuda"),
+                  DeviceDataset.from_numpy(images[va], labels[va], "cuda"))
+    del images
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = pretrain(cfg, split, log=lines.append, save_plots=False,
+                       device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.cuda.max_memory_reserved() / 2 ** 30)
+    eager = WARMUP_STEPS + 1
+    val_steps = cfg.train.n_epoch * (split.val.n // 256)
+    _expect_counts(counts, {"ntxent_fwd": eager + val_steps,
+                            "ntxent_bwd": eager,
+                            "color": 2 * (eager + val_steps)},
+                   "STL-10 pretrain")
+    hist = run.history.to_dict()
+    values = [v for k in ("loss", "accuracy") for s in hist[k].values()
+              for v in s]
+    if len(hist["loss"]["train"]) != 2 or not all(
+            math.isfinite(v) for v in values):
+        raise AssertionError(f"STL-10 history {hist}")
+    busy = _busy_by_epoch(torch, prof)
+    wall_us, busy_us = busy["train_epoch 2"]
+    cats = _epoch_categories(torch, prof, "train_epoch 2", 6)
+
+    reset_counts()
+    pairs = aug_pairs_per_sec(cfg, split.train.images[:256])
+    _expect_counts(read_counts(), {"color": 160}, "augmentation rate")
+    lin_lines = []
+    loss, acc = linear_evaluation(run.state.model, split.train, split.val,
+                                  cfg, log=lin_lines.append)
+    if not (math.isfinite(loss) and math.isfinite(acc)):
+        raise AssertionError(f"linear evaluation: {lin_lines}")
+    print(f"  stl10: {run.steady_steps_per_sec:.3f} steps/s in epoch 2 "
+          f"(batch 256, 512 images of 96x96 a step; "
+          f"{run.steps_per_sec:.3f} with epoch 1's warm-up and capture), "
+          f"device busy {100 * busy_us / wall_us:.1f}% of epoch 2's "
+          f"{wall_us / 1e3:.1f} ms (profiled); peak {peak[0]:.2f} GiB "
+          f"allocated, {peak[1]:.2f} GiB reserved; augmentation "
+          f"{pairs:.1f} pairs/s at 96x96; on {smi}")
+    print(f"  stl10: device ms a replayed step by category (epoch 2): "
+          f"{cats}")
+    print(f"  stl10: linear evaluation top-1 {acc:.2f}% (a floor on "
+          f"synthetic data, not an accuracy), loss {loss:.4f}; "
+          f"{lin_lines[0]}")
+    del run, split
+    _release(torch, {})
+    return {"summary": f"2 epochs of 6 steps (train losses "
+                       f"{[round(v, 4) for v in hist['loss']['train']]}, "
+                       f"valid {[round(v, 4) for v in hist['loss']['valid']]}"
+                       f"); B1f {counts['ntxent_fwd']}, B1b "
+                       f"{counts['ntxent_bwd']}, B2 {counts['color']} "
+                       f"launches (eager steps, capture, validation); "
+                       f"{pairs:.1f} aug pairs/s; top-1 {acc:.2f}%"}
+
+
+# ---------------------------------------------------------------------------
 # Host streaming, the C++ data plane and data parallelism.
 # ---------------------------------------------------------------------------
 
@@ -3603,6 +3953,9 @@ def main() -> int:
         ssl_phase(torch, info["smi"], pre)
         supervised_phase(torch, info["smi"], pre)
         mine_phase(torch, info["smi"], pre)
+        analysis_phase(torch, info["smi"], pre)
+        serving_phase(torch, info["smi"], pre, tmp)
+        stl10_phase(torch, info["smi"], tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     native_phase(torch, info["smi"])

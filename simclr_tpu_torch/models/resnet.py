@@ -153,17 +153,21 @@ class MCDropout(nn.Module):
     order, so that the output keeps that memory format.
 
     With ``record`` set, each call keeps its boolean mask in ``mask``
-    (tests and the card's graph check compare them)."""
+    (tests and the card's graph check compare them). A mask in the
+    non-persistent buffer ``baked`` is used in place of a draw, and no
+    generator is needed (``utils/serving.py`` bakes the masks of one
+    draw into an exported forward)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.record = False
         self.mask: Optional[torch.Tensor] = None
+        self.register_buffer("baked", None, persistent=False)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
-        if generator is None:
+        if self.baked is None and generator is None:
             raise ValueError("MC dropout draws its masks from a generator: "
                              "pass generator=")
         if self.rate == 0.0:
@@ -171,13 +175,17 @@ class MCDropout(nn.Module):
         if self.rate == 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
-        if x.dim() == 4:
-            n, c, h, w = x.shape
-            u = torch.rand((n, h, w, c), generator=generator,
-                           device=x.device).permute(0, 3, 1, 2)
+        if self.baked is not None:
+            mask = self.baked
         else:
-            u = torch.rand(x.shape, generator=generator, device=x.device)
-        mask = u < keep
+            if x.dim() == 4:
+                n, c, h, w = x.shape
+                u = torch.rand((n, h, w, c), generator=generator,
+                               device=x.device).permute(0, 3, 1, 2)
+            else:
+                u = torch.rand(x.shape, generator=generator,
+                               device=x.device)
+            mask = u < keep
         if self.record:
             self.mask = mask
         # flax divides by keep_prob in the input's dtype.

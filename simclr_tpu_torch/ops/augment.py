@@ -482,6 +482,29 @@ def augment_train_pair(
             augment_train(generator, images, aug, ds))
 
 
+def augment_anchor_pair_apply(
+    images: torch.Tensor,
+    params: ViewParams,
+    ds: DatasetConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(normalised original, training view with the given draws) of NHWC
+    uint8 or float images."""
+    return augment_test(images, ds), augment_train_apply(images, params, ds)
+
+
+def augment_anchor_pair(
+    generator: torch.Generator,
+    images: torch.Tensor,
+    aug: AugmentConfig,
+    ds: DatasetConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Anchor mode: (normalised original, augmented view) per image, the
+    reference's ``anchor=True`` dataset mode that the representation
+    analogy uses (reference: data.py:44-50, utils/metrics.py:232)."""
+    return augment_test(images, ds), augment_train(generator, images, aug,
+                                                   ds)
+
+
 # ---------------------------------------------------------------------------
 # Test and fine-tune views.
 # ---------------------------------------------------------------------------

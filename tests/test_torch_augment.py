@@ -28,6 +28,17 @@ ATOL = 2e-5
 AUG = AugmentConfig()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One PyTorch thread for this module: under the tier-1 run's six
+    workers an 8-thread pool for small tensors costs more than it
+    gives."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

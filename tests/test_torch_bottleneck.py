@@ -71,6 +71,17 @@ ULP = 2.0 ** -8
 NAMES = ("dx", "dw1", "dw2", "dw3", "dA1", "dB1", "dA2", "dB2", "dA3", "dB3")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One PyTorch thread for this module: under the tier-1 run's six
+    workers an 8-thread pool for small tensors costs more than it
+    gives."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _nchw(a):
     """NHWC numpy -> NCHW torch tensor in channels_last memory."""
     return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2)

@@ -24,6 +24,17 @@ ATOL = 1e-5
 AUG = AugmentConfig()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One PyTorch thread for this module: under the tier-1 run's six
+    workers an 8-thread pool for small tensors costs more than it
+    gives."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _images(n, size, seed, ties=False):
     rng = np.random.default_rng(seed)
     x = rng.uniform(0.0, 1.0, (n, size, size, 3)).astype(np.float32)

@@ -16,6 +16,17 @@ import torch
 from simclr_tpu_torch.ops.kernels import conv64 as tc64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One PyTorch thread for this module: under the tier-1 run's six
+    workers an 8-thread pool for small tensors costs more than it
+    gives."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _filter(seed=0):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.standard_normal((64, 64, 3, 3)).astype(

@@ -49,7 +49,11 @@ def test_every_port_module_imports_without_jax():
                  "train.mine", "scripts.train_supervised",
                  "scripts.train_mine", "ops.foldconv", "ops.subset_wgrad",
                  "data.native", "train.streaming", "parallel.mesh",
-                 "parallel.explicit", "parallel.launch", "entry"):
+                 "parallel.explicit", "parallel.launch", "entry",
+                 "utils.metrics", "utils.serving", "scripts.analysis",
+                 "scripts.stl10_artifact", "scripts.parity_run",
+                 "scripts.merge_parity", "scripts.temp_sweep",
+                 "scripts.batch_sweep"):
         assert f"simclr_tpu_torch.{name}" in modules
     root = Path(simclr_tpu_torch.__file__).resolve().parents[1]
     result = subprocess.run(

@@ -22,6 +22,17 @@ RTOL, ATOL = 1e-5, 1e-6
 SHAPES = [(16, 32), (16, 128), (40, 32), (40, 128)]  # (2N, D)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One PyTorch thread for this module: under the tier-1 run's six
+    workers an 8-thread pool for small tensors costs more than it
+    gives."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _pair(n2, d, seed=0, scale=1.0):
     rng = np.random.default_rng(seed)
     z = (rng.standard_normal((n2, d)) * scale).astype(np.float32)

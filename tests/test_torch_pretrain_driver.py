@@ -52,6 +52,17 @@ TINY = dict(feature_dim=32, compressed_dim=16, stage_sizes=(1, 1, 1, 1),
 N = 8  # pairs: 2N = 16 rows
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One PyTorch thread for this module: under the tier-1 run's six
+    workers an 8-thread pool for small tensors costs more than it
+    gives."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _tiny_config(img_size=16):
     """The tiny model on img_size x img_size CIFAR-like views."""
     cfg = tcfg.Config(model=tcfg.ModelConfig(**TINY),

@@ -18,6 +18,17 @@ from simclr_tpu_torch.ops.kernels import winograd as twg
 _UWIDTHS = ((128, 128), (96, 160), (32, 32))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One PyTorch thread for this module: under the tier-1 run's six
+    workers an 8-thread pool for small tensors costs more than it
+    gives."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _u(c, k, seed=0):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.standard_normal((16, c, k)).astype(
