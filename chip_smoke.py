@@ -178,6 +178,15 @@ Phases, each printed as one line with its result and wall time:
    2 in each validation step, counted), finite losses, steps/s, busy
    share and peak memory; augmented pairs/s at 96x96; a short linear
    evaluation.
+27. measure: the four measurement harnesses (``simclr_tpu_torch/
+   scripts/``): ``bench_variants`` on ``unfused``, ``bnrelu``,
+   ``conv64``, ``winograd`` and ``fuse64`` (batch 512, 6 steps, 2 timed
+   epochs; each wrapper's launches counted; losses finite; ``unfused``
+   within 10% of the slice phase's steps/s), ``profile_step`` on
+   ``unfused`` (device busy within 5% of the profile phase's; a roofline
+   floor from one eager step's op costs), ``bn_relu_microbench`` (B3b at
+   its four shapes) and ``bench_winograd`` (B5 against cuDNN at layers
+   2-4), each checked before it is timed.
 
 Then a JSON line with each kernel's numbers, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -188,13 +197,14 @@ limit, and as the last line ``{"ok": true, "device": {...}}``.
     python3 chip_smoke.py color      # only phase 4 (also on an archive
                                      # of an earlier tree)
     python3 chip_smoke.py b2_trace   # B2 blocks' phase clocks
+    python3 chip_smoke.py measure    # phases 6, 7 and 27 only
  Any failure
 exits non-zero without that line; so does a run without a GPU or outside
 the repository. Writes nothing but the kernel build under
 ``simclr_tpu_torch/_build/`` and, in a temporary directory that it
 removes at the end, the pretrain phase's checkpoints and the export that
-the downstream phases read, the serving phase's artifact and the stl10
-phase's export.
+the downstream phases read, the serving phase's artifact, the stl10
+phase's export and the measure phase's trace.
 """
 
 from __future__ import annotations
@@ -1674,6 +1684,7 @@ def _run_slice(torch, smi, cfg, expected):
     return {"launches": launches, "engine": engine, "state": state,
             "images": ds.images, "idx": idx_mat[row + 1:row + 3], "gen": gen,
             "expected": expected, "ds": ds, "kept_gib": kept_gib,
+            "steps_per_s": steps / seconds,
             "summary": f"ResNet-50 ({n_params} trunk params), batch {batch},"
                        f" {warm} eager steps, {captures} capture(s) and 1 "
                        f"replay in "
@@ -1722,27 +1733,6 @@ def fused_slice_phase(torch, smi):
     # layer4_1-2): every one passes bottleneck.supports at batch 512.
     return _run_slice(torch, smi, cfg, {"bottleneck_fwd": 12,
                                         "bottleneck_bwd": 12})
-
-
-_CATEGORIES = (  # first match wins, on the lower-cased kernel name
-    ("ntxent (B1)", ("ntxent",)),
-    ("colour (B2)", ("color_kernel",)),
-    ("bn_relu (B3)", ("bn_bwd",)),
-    # conv64_wgrad_kernel is also B6b's dw2 (csrc/bottleneck.cu): on the
-    # fused path this category is B6's.
-    ("conv64 (B4; B6b's dw2 on the fused path)", ("conv64_",)),
-    ("winograd (B5)", ("winograd_",)),
-    ("bottleneck (B6)", ("bottleneck_",)),
-    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit",
-                     "xmma", "cutlass", "nhwc", "nchw")),
-    ("matmul", ("gemm", "matmul")),
-    ("optimizer", ("adam", "multi_tensor")),
-    ("reduction", ("reduce",)),
-    # torch.rand & co. (augmentation draws, MC-dropout masks).
-    ("random draws", ("distribution",)),
-    ("elementwise", ("elementwise", "vectorized", "unrolled", "index",
-                     "cat", "copy", "fill")),
-)
 
 
 def _profiled(torch, fn):
@@ -1800,7 +1790,8 @@ def _profile(torch, run):
         print(f"  kernel {ms / steps:8.3f} ms/step  {name[:100]}")
     cat_text = ", ".join(f"{c} {ms / steps:.2f}" for c, ms in
                          _by_category(by_name))
-    return {"summary": f"{steps} replayed steps, kernels by name a step "
+    return {"busy_ms": busy / steps,
+            "summary": f"{steps} replayed steps, kernels by name a step "
                        f"{ {c: n // steps for c, n in named.items() if n} }, "
                        f"wall {wall_ms / steps:.2f} ms/step,"
                        f" device busy {busy / steps:.2f} ms/step "
@@ -2916,14 +2907,11 @@ def ssl_phase(torch, smi, pre):
 
 
 def _by_category(by_name):
-    """Device ms by kernel category (``_CATEGORIES``), largest first."""
-    cats = {}
-    for name, ms in by_name.items():
-        low = name.lower()
-        cat = next((c for c, keys in _CATEGORIES
-                    if any(k in low for k in keys)), "other")
-        cats[cat] = cats.get(cat, 0.0) + ms
-    return sorted(cats.items(), key=lambda kv: -kv[1])
+    """Device ms by kernel category, largest first (one table for this
+    script and the profile_step harness:
+    ``simclr_tpu_torch/scripts/profile_step.py:CATEGORIES``)."""
+    from simclr_tpu_torch.scripts.profile_step import by_category
+    return by_category(by_name)
 
 
 def _replays_busy(torch, run):
@@ -3345,7 +3333,7 @@ def serving_phase(torch, smi, pre, tmp):
 
 
 def _epoch_categories(torch, prof, span, steps):
-    """Device ms a step by kernel category (``_CATEGORIES``) of the
+    """Device ms a step by kernel category (``_by_category``) of the
     kernels that started inside the annotation ``span``, over ``steps``
     steps."""
     from torch.autograd import DeviceType
@@ -3883,6 +3871,100 @@ def parallel_phase(torch, smi):
                        f"{gloo}; on {smi}"}
 
 
+# The measure phase: a bench_variants variant on each kernel path, with the
+# launches a step each wrapper must show besides _PER_STEP.
+_MEASURE_VARIANTS = {
+    "unfused": {},
+    "bnrelu": {"bn_bwd_relu": 32, "bn_bwd_add_relu": 16,
+               "bn_bwd_norelu": 4},
+    "conv64": {"conv64_fwd": 6, "conv64_wgrad": 3},
+    "winograd": {"winograd_fwd": 20, "winograd_dw": 10},
+    "fuse64": {"bottleneck_fwd": 12, "bottleneck_bwd": 12},
+}
+_MEASURE_RATE_REL = 0.10   # unfused against the slice phase's steps/s
+_MEASURE_BUSY_REL = 0.05   # profile_step against the profile phase's busy
+# What a freed variant may leave allocated: B6's packing indices (its
+# wrapper's lru_cache, 45.8 MiB over the four widths and both halves).
+_MEASURE_LEFT_MIB = 64.0
+
+
+@phase("measure")
+def measure_phase(torch, smi, slice_rate, profile_busy):
+    """The four measurement harnesses' functions on the card
+    (``simclr_tpu_torch/scripts/``): ``bench_variants`` on a variant of
+    each kernel path at batch 512 (6 steps, 2 timed epochs) over 4,096
+    synthetic images, each wrapper's launches counted in the eager steps
+    and the capture, each loss finite, each freed engine's memory given
+    back, ``unfused`` within 10% of the slice phase's steps/s;
+    ``profile_step`` on ``unfused`` (6 traced replays, the costs of one
+    eager step), its device-busy ms a step within 5% of the profile
+    phase's and a roofline floor over some of it;
+    ``bn_relu_microbench`` at its four shapes and ``bench_winograd`` at
+    layers 2-4, each checked against its plain version or cuDNN before it
+    is timed, with its launch counts."""
+    from simclr_tpu_torch.data.datasets import synthetic_dataset
+    from simclr_tpu_torch.scripts import (
+        bench_variants, bench_winograd, bn_relu_microbench, profile_step)
+    from simclr_tpu_torch.train.common import WARMUP_STEPS
+
+    images = torch.from_numpy(synthetic_dataset(4096, img_size=32,
+                                                seed=0)[0]).to("cuda")
+    rows = {}
+    for name, extra in _MEASURE_VARIANTS.items():
+        reset_counts()
+        row = bench_variants.bench_variant(name, images, 512, 6, 2)
+        counts = read_counts()
+        want = {**_PER_STEP, **extra}
+        for c, n in counts.items():
+            if n != want.get(c, 0) * (WARMUP_STEPS + 1):
+                raise AssertionError(f"{name}: {c} launched {n} times, "
+                                     f"expected {want.get(c, 0)} a step; "
+                                     f"{counts}")
+        if not math.isfinite(row["loss"]):
+            raise AssertionError(f"{name}: loss {row['loss']}")
+        if row["left_mib"] > _MEASURE_LEFT_MIB:
+            raise AssertionError(f"{name}: {row['left_mib']:.1f} MiB left "
+                                 "allocated after its engine was freed")
+        rows[name] = row
+        print(f"  {bench_variants.format_row(row)}", flush=True)
+    rate = rows["unfused"]["steps_per_s"]
+    if abs(rate - slice_rate) > _MEASURE_RATE_REL * slice_rate:
+        raise AssertionError(f"bench_variants unfused {rate:.3f} steps/s, "
+                             f"the slice phase {slice_rate:.3f}")
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        report = profile_step.profile_variant(
+            "unfused", images, 512, 6, 20, logdir,
+            out=lambda line: print(f"  {line}", flush=True))
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    busy = report["device_ms"]
+    if abs(busy - profile_busy) > _MEASURE_BUSY_REL * profile_busy:
+        raise AssertionError(f"profile_step busy {busy:.2f} ms/step, the "
+                             f"profile phase {profile_busy:.2f}")
+    if not report["floor_ms"] > 0.0:
+        raise AssertionError("profile_step found no op's cost")
+    del images
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = lambda line: print(f"  {line}", flush=True)  # noqa: E731
+    b3 = bn_relu_microbench.run(20, "cuda", compiled=False, out=out)
+    b5 = bench_winograd.run(10, "cuda", out=out)
+    b3_first = next(r for r in b3 if r["call"] == "kernel")
+    b5_l2 = {r["conv"]: r for r in b5 if r["shape"] == "layer2"}
+    return {"rows": rows, "profile": report, "b3": b3, "b5": b5,
+            "summary": "bench_variants " + ", ".join(
+                f"{n} {r['steps_per_s']:.3f}" for n, r in rows.items())
+                + f" steps/s (slice {slice_rate:.3f}); profile_step busy "
+                f"{busy:.2f} ms/step (profile phase {profile_busy:.2f}), "
+                f"floor {report['floor_ms']:.2f} over "
+                f"{report['covered_ms']:.2f}; B3b at "
+                f"{b3_first['shape']} {b3_first['ms']:.4f} ms (bound "
+                f"{b3_first['bound_ms']:.4f}); layer2 fwd+bwd winograd "
+                f"{b5_l2['winograd']['fwd_bwd_ms']:.4f} ms, cuDNN "
+                f"{b5_l2['direct']['fwd_bwd_ms']:.4f} ms; on {smi}"}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3904,6 +3986,15 @@ def main() -> int:
     if sys.argv[1:] == ["b2_trace"]:
         b2_trace(torch)
         return 0
+    if sys.argv[1:] == ["measure"]:
+        # The measure phase and the default slice it is compared with.
+        build()
+        sl = slice_phase(torch, info["smi"])
+        prof = profile_phase(torch, sl)
+        rate = sl["steps_per_s"]
+        _release(torch, sl)
+        measure_phase(torch, info["smi"], rate, prof["busy_ms"])
+        return 0
     if sys.argv[1:] == ["b6_split"]:
         # Only B6's time split (see _b6_split), e.g. on an archive of an
         # earlier tree, for a before/after comparison in one call.
@@ -3919,8 +4010,8 @@ def main() -> int:
     col = color_phase(torch)
     b3 = bn_relu_phase(torch)
     sl = slice_phase(torch, info["smi"])
-    profile_phase(torch, sl)
-    default_launches = sl["launches"]
+    default_busy = profile_phase(torch, sl)["busy_ms"]
+    default_launches, default_rate = sl["launches"], sl["steps_per_s"]
     _release(torch, sl)
     bsl = bnrelu_slice_phase(torch, info["smi"])
     bnrelu_profile_phase(torch, bsl)
@@ -3961,6 +4052,7 @@ def main() -> int:
     native_phase(torch, info["smi"])
     streaming_phase(torch, info["smi"])
     parallel_phase(torch, info["smi"])
+    measure_phase(torch, info["smi"], default_rate, default_busy)
 
     src = "simclr_tpu_torch/csrc/"
     b3_src = "simclr_tpu/ops/pallas/bn_relu.py:"

@@ -6,3 +6,26 @@ hand-written Hopper kernels under ``ops/kernels/`` and their CUDA sources in
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``, where every kernel wrapper takes its plain PyTorch version.
 """
+
+__version__ = "0.1.0"
+
+from simclr_tpu_torch.config import (
+    AugmentConfig,
+    Config,
+    DatasetConfig,
+    ModelConfig,
+    OptimConfig,
+    TrainConfig,
+    dataset_config,
+)
+
+__all__ = [
+    "AugmentConfig",
+    "Config",
+    "DatasetConfig",
+    "ModelConfig",
+    "OptimConfig",
+    "TrainConfig",
+    "dataset_config",
+    "__version__",
+]

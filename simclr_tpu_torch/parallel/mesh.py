@@ -6,10 +6,10 @@ rank is a process with one device (``torchrun --nproc_per_node N``, or
 ranks spawned by the caller), and ``make_mesh`` returns a small ``Mesh``:
 the process group, this rank, the world size and the rank's device. The
 batch axis is sharded by ``shard_batch`` (this rank's contiguous slice of
-the leading axis), parameters are replicated by ``put_replicated``
-(broadcast from rank 0), and ``DATA_AXIS`` names the group for the BNs'
-cross-rank statistics (``models/norm.py``), as JAX's ``axis_name`` names
-the mesh axis.
+the leading axis: ``batch_sharding``), parameters are replicated by
+``put_replicated`` (broadcast from rank 0: ``replicated``), and
+``DATA_AXIS`` names the group for the BNs' cross-rank statistics
+(``models/norm.py``), as JAX's ``axis_name`` names the mesh axis.
 
 The backend is NCCL for CUDA devices and gloo for the CPU. gloo on CUDA
 tensors runs only where the caller asks for it (``backend='gloo'``): NCCL
@@ -122,17 +122,46 @@ def axis_mesh(name: str) -> Mesh:
                         f"{DATA_AXIS!r})") from None
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Sharding:
+    """Where a tensor's values live on a mesh, JAX's ``NamedSharding`` of
+    ``P('data')`` or ``P()`` on its 1-D mesh. ``'batch'``: each rank holds
+    its contiguous slice of the leading axis. ``'replicated'``: each rank
+    holds the whole tensor, rank 0's values. Calling it on a tensor
+    places the tensor so: a slice, or a broadcast in place."""
+
+    mesh: Mesh
+    kind: str
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        mesh = self.mesh
+        if self.kind == "batch":
+            n = t.shape[0]
+            if n % mesh.size:
+                raise ValueError(f"a leading axis of {n} does not split "
+                                 f"over {mesh.size} ranks")
+            m = n // mesh.size
+            return t[mesh.rank * m:(mesh.rank + 1) * m]
+        dist.broadcast(t, src=0, group=mesh.group)
+        return t
+
+
+def batch_sharding(mesh: Mesh) -> Sharding:
+    """Leading axis sharded over the mesh's ranks."""
+    return Sharding(mesh, "batch")
+
+
+def replicated(mesh: Mesh) -> Sharding:
+    """The whole tensor on every rank, rank 0's values."""
+    return Sharding(mesh, "replicated")
+
+
 def shard_batch(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """This rank's contiguous slice of the leading axis (the whole tensor
     without a mesh or on one rank)."""
     if mesh is None or mesh.size == 1:
         return x
-    n = x.shape[0]
-    if n % mesh.size:
-        raise ValueError(f"a leading axis of {n} does not split over "
-                         f"{mesh.size} ranks")
-    m = n // mesh.size
-    return x[mesh.rank * m:(mesh.rank + 1) * m]
+    return batch_sharding(mesh)(x)
 
 
 @torch.no_grad()
@@ -156,10 +185,11 @@ def put_replicated(tree, mesh: Optional[Mesh]):
         tensors += list(getattr(tree, "acc", []))
     else:
         raise TypeError(f"cannot replicate a {type(tree).__name__}")
+    place = replicated(mesh)
     for t in tensors:
         if mesh.backend == "nccl" and t.device.type != "cuda":
             continue  # a host step count: the same on every rank
-        dist.broadcast(t.data, src=0, group=mesh.group)
+        place(t.data)
     return tree
 
 

@@ -32,6 +32,7 @@
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -136,104 +137,6 @@ def test_accumulator_state_round_trips():
 
 
 # ---------------------------------------------------------------------------
-# Whole micro-steps against the JAX engine.
-# ---------------------------------------------------------------------------
-
-def _configs(k):
-    train = dict(batch_size=BATCH, temperature=0.5, accum_steps=k)
-    return (tcfg.Config(model=tcfg.ModelConfig(**SMALL),
-                        train=tcfg.TrainConfig(**train)),
-            jcfg.Config(model=jcfg.ModelConfig(**SMALL),
-                        train=jcfg.TrainConfig(**train)))
-
-
-def _run_both(k, steps):
-    tc, jc = _configs(k)
-    tmodel, tstate, topt = tpre.init_simclr(tc, seed=0, device="cpu")
-    engine = tpre.build_engine(tc, tmodel, topt)
-    params, stats = simclr_to_jax(tmodel.state_dict())
-    # The optimizer JAX's init_simclr builds (its model.init runs eagerly,
-    # some 25 s here; the weights come from the port anyway).
-    jmodel = JSimCLR(cfg=jc.model)
-    tx = jcommon.with_grad_accumulation(
-        jcommon.adam_torch(jc.optim.lr, jc.optim.wt_decay), k)
-    jstate = jcommon.TrainState.create(params, stats, tx)
-    jengine = jax_build_engine(jc, jmodel, tx, use_pallas_ntxent=False)
-    names = [n for n, _ in tmodel.named_parameters()]
-
-    images, _ = jds.synthetic_dataset(BATCH, img_size=32, seed=3)
-    batch = torch.from_numpy(images)
-    out = []
-    for step in range(steps):
-        before = (dict(_flat(simclr_to_jax(tmodel.state_dict())[0])),
-                  dict(_flat(jax.device_get(jstate.params))))
-        key = jax.random.key(10 + step)
-        jstate, (jloss, _) = jengine.train_step_direct(
-            jstate, jnp.asarray(images), key)
-        k_aug, _ = jax.random.split(key)
-        k1, k2 = jax.random.split(k_aug)
-        pair = (jax_view_params(k1, BATCH, 32, 32, tc.augment),
-                jax_view_params(k2, BATCH, 32, 32, tc.augment))
-        tstate, (tloss, _) = engine.train_step_on_params(tstate, batch, pair)
-        acc = dict(_flat(simclr_to_jax(dict(zip(names, topt.acc)))[0]))
-        out.append(dict(
-            loss=(float(tloss), float(jloss)), before=before,
-            after=(dict(_flat(simclr_to_jax(tmodel.state_dict())[0])),
-                   dict(_flat(jax.device_get(jstate.params)))),
-            acc=(acc, dict(_flat(jax.device_get(
-                jstate.opt_state.acc_grads)))),
-            mini=(topt.mini, int(jstate.opt_state.mini_step)),
-            step=(tstate.step, int(jstate.step))))
-    return out
-
-
-@pytest.fixture(scope="module", params=[2, 3], ids=["k2", "k3"])
-def accum_run(request):
-    k = request.param
-    return k, _run_both(k, 3)
-
-
-def test_micro_steps_log_loss_over_k_as_jax(accum_run):
-    k, run = accum_run
-    for i, r in enumerate(run):
-        tl, jl = r["loss"]
-        np.testing.assert_allclose(tl, jl, rtol=1e-5 if i < k else 1e-3)
-        # A step's NT-Xent on 2N = 80 rows lies near ln(79) = 4.37.
-        assert 3.0 / k < tl < 6.0 / k
-        assert r["mini"] == ((i + 1) % k,) * 2
-        assert r["step"] == (i + 1,) * 2
-
-
-def test_accumulated_gradients_track_jax(accum_run):
-    k, run = accum_run
-    for i, r in enumerate(run[:k - 1]):
-        ta, ja = r["acc"]
-        assert ta.keys() == ja.keys()
-        diff = np.concatenate([(ta[n] - ja[n]).ravel() for n in ja])
-        whole = np.linalg.norm(np.concatenate([ja[n].ravel() for n in ja]))
-        assert np.linalg.norm(diff) <= 1e-2 * whole
-        for name, jv in ja.items():
-            scale = whole if name == "g/linear0/bias" else np.linalg.norm(jv)
-            assert np.linalg.norm(ta[name] - jv) <= 2.5e-2 * scale, \
-                f"micro-step {i}: {name}"
-
-
-def test_parameters_move_only_on_the_kth_micro_step(accum_run):
-    k, run = accum_run
-    for i, r in enumerate(run):
-        (tb, jb), (ta, ja) = r["before"], r["after"]
-        if (i + 1) % k:
-            assert all(np.array_equal(tb[n], ta[n]) for n in tb)
-            assert all(np.array_equal(jb[n], ja[n]) for n in jb)
-            continue
-        names = [n for n in ja if n != "g/linear0/bias"]
-        for name in names:
-            dj, dt = ja[name] - jb[name], ta[name] - tb[name]
-            assert np.linalg.norm(dj) > 0, name
-            assert np.linalg.norm(dt - dj) <= 0.25 * np.linalg.norm(dj), name
-
-
-# ---------------------------------------------------------------------------
 # Within the port: epochs, resume, the CLI.
 # ---------------------------------------------------------------------------
 
@@ -317,3 +220,148 @@ def test_cli_takes_accum_steps(monkeypatch):
     monkeypatch.setattr(tpre, "pretrain", fake_pretrain)
     cli.main(["--accum_steps", "2", "--device", "cpu"])
     assert seen["cfg"].train.accum_steps == 2
+# ---------------------------------------------------------------------------
+# Whole micro-steps against the JAX engine.
+# ---------------------------------------------------------------------------
+
+def _configs(k):
+    train = dict(batch_size=BATCH, temperature=0.5, accum_steps=k)
+    return (tcfg.Config(model=tcfg.ModelConfig(**SMALL),
+                        train=tcfg.TrainConfig(**train)),
+            jcfg.Config(model=jcfg.ModelConfig(**SMALL),
+                        train=jcfg.TrainConfig(**train)))
+
+
+def _both_engines(k):
+    """The port's engine with ``accum_steps`` k and JAX's on the port's
+    weights, with the optimizer JAX's ``init_simclr`` builds
+    (``with_grad_accumulation``; its ``model.init`` runs eagerly, some 25 s
+    here, and the weights come from the port anyway), JAX's step lowered
+    for the batch: (lowered step, JAX's state, the port's side)."""
+    tc, jc = _configs(k)
+    tmodel, tstate, topt = tpre.init_simclr(tc, seed=0, device="cpu")
+    engine = tpre.build_engine(tc, tmodel, topt)
+    params, stats = simclr_to_jax(tmodel.state_dict())
+    jmodel = JSimCLR(cfg=jc.model)
+    tx = jcommon.with_grad_accumulation(
+        jcommon.adam_torch(jc.optim.lr, jc.optim.wt_decay), k)
+    jstate = jcommon.TrainState.create(params, stats, tx)
+    jengine = jax_build_engine(jc, jmodel, tx, use_pallas_ntxent=False)
+    images, _ = jds.synthetic_dataset(BATCH, img_size=32, seed=3)
+    lowered = jengine.train_step_direct.lower(
+        jstate, jnp.asarray(images), jax.random.key(10))
+    return lowered, jstate, dict(tc=tc, model=tmodel, state=tstate,
+                                 opt=topt, engine=engine, images=images)
+
+
+def _port_steps(side, steps):
+    """``steps`` micro-steps of the port's engine on the batch, each with
+    the augmentation draws of JAX's key for that step."""
+    tc, tmodel, tstate = side["tc"], side["model"], side["state"]
+    topt, engine = side["opt"], side["engine"]
+    names = [n for n, _ in tmodel.named_parameters()]
+    batch = torch.from_numpy(side["images"])
+    records = []
+    for step in range(steps):
+        before = dict(_flat(simclr_to_jax(tmodel.state_dict())[0]))
+        k_aug, _ = jax.random.split(jax.random.key(10 + step))
+        k1, k2 = jax.random.split(k_aug)
+        pair = (jax_view_params(k1, BATCH, 32, 32, tc.augment),
+                jax_view_params(k2, BATCH, 32, 32, tc.augment))
+        tstate, (tloss, _) = engine.train_step_on_params(tstate, batch, pair)
+        acc = dict(_flat(simclr_to_jax(dict(zip(names, topt.acc)))[0]))
+        records.append(dict(
+            loss=float(tloss), before=before,
+            after=dict(_flat(simclr_to_jax(tmodel.state_dict())[0])),
+            acc=acc, mini=topt.mini, step=tstate.step))
+    return records
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_steps():
+    """JAX's two steps (k = 2 and 3), traced here, before the first test,
+    and compiled on a thread pool: XLA releases the GIL while it compiles,
+    which is most of each oracle's time, so the compiles overlap the tests
+    that run meanwhile and the port's micro-steps. k -> (future of the
+    compiled step, JAX's state, the port's side)."""
+    pool = ThreadPoolExecutor(max_workers=2)
+    steps = {}
+    for k in (2, 3):
+        lowered, jstate, side = _both_engines(k)
+        steps[k] = (pool.submit(lowered.compile), jstate, side)
+    yield steps
+    for future, _, _ in steps.values():
+        future.result()
+    pool.shutdown()
+
+
+@pytest.fixture(scope="module")
+def both_runs(jax_steps):
+    """Both engines for k = 2 and 3, three micro-steps each, from the same
+    weights, batch and augmentation draws: the port's first, while JAX's
+    steps compile, then JAX's. k -> one record a micro-step, (port, JAX)
+    pairs."""
+    ports = {k: _port_steps(side, 3) for k, (_, _, side) in jax_steps.items()}
+    runs = {}
+    for k, (compiled, jstate, side) in jax_steps.items():
+        step_fn, images = compiled.result(), jnp.asarray(side["images"])
+        runs[k] = []
+        for step, p in enumerate(ports[k]):
+            before = dict(_flat(jax.device_get(jstate.params)))
+            jstate, (jloss, _) = step_fn(jstate, images,
+                                         jax.random.key(10 + step))
+            runs[k].append(dict(
+                loss=(p["loss"], float(jloss)),
+                before=(p["before"], before),
+                after=(p["after"],
+                       dict(_flat(jax.device_get(jstate.params)))),
+                acc=(p["acc"], dict(_flat(jax.device_get(
+                    jstate.opt_state.acc_grads)))),
+                mini=(p["mini"], int(jstate.opt_state.mini_step)),
+                step=(p["step"], int(jstate.step))))
+    return runs
+
+
+@pytest.fixture(scope="module", params=[2, 3], ids=["k2", "k3"])
+def accum_run(request, both_runs):
+    return request.param, both_runs[request.param]
+
+
+def test_micro_steps_log_loss_over_k_as_jax(accum_run):
+    k, run = accum_run
+    for i, r in enumerate(run):
+        tl, jl = r["loss"]
+        np.testing.assert_allclose(tl, jl, rtol=1e-5 if i < k else 1e-3)
+        # A step's NT-Xent on 2N = 80 rows lies near ln(79) = 4.37.
+        assert 3.0 / k < tl < 6.0 / k
+        assert r["mini"] == ((i + 1) % k,) * 2
+        assert r["step"] == (i + 1,) * 2
+
+
+def test_accumulated_gradients_track_jax(accum_run):
+    k, run = accum_run
+    for i, r in enumerate(run[:k - 1]):
+        ta, ja = r["acc"]
+        assert ta.keys() == ja.keys()
+        diff = np.concatenate([(ta[n] - ja[n]).ravel() for n in ja])
+        whole = np.linalg.norm(np.concatenate([ja[n].ravel() for n in ja]))
+        assert np.linalg.norm(diff) <= 1e-2 * whole
+        for name, jv in ja.items():
+            scale = whole if name == "g/linear0/bias" else np.linalg.norm(jv)
+            assert np.linalg.norm(ta[name] - jv) <= 2.5e-2 * scale, \
+                f"micro-step {i}: {name}"
+
+
+def test_parameters_move_only_on_the_kth_micro_step(accum_run):
+    k, run = accum_run
+    for i, r in enumerate(run):
+        (tb, jb), (ta, ja) = r["before"], r["after"]
+        if (i + 1) % k:
+            assert all(np.array_equal(tb[n], ta[n]) for n in tb)
+            assert all(np.array_equal(jb[n], ja[n]) for n in jb)
+            continue
+        names = [n for n in ja if n != "g/linear0/bias"]
+        for name in names:
+            dj, dt = ja[name] - jb[name], ta[name] - tb[name]
+            assert np.linalg.norm(dj) > 0, name
+            assert np.linalg.norm(dt - dj) <= 0.25 * np.linalg.norm(dj), name

@@ -53,7 +53,9 @@ def test_every_port_module_imports_without_jax():
                  "utils.metrics", "utils.serving", "scripts.analysis",
                  "scripts.stl10_artifact", "scripts.parity_run",
                  "scripts.merge_parity", "scripts.temp_sweep",
-                 "scripts.batch_sweep"):
+                 "scripts.batch_sweep", "scripts.bench_variants",
+                 "scripts.profile_step", "scripts.bn_relu_microbench",
+                 "scripts.bench_winograd", "_lazy"):
         assert f"simclr_tpu_torch.{name}" in modules
     root = Path(simclr_tpu_torch.__file__).resolve().parents[1]
     result = subprocess.run(

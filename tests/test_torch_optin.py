@@ -36,6 +36,8 @@ Tolerances, each measured here first:
   1.0e-2 and 2.1e-2.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,28 +107,35 @@ def _rel(a, b):
 # conv_subset_wgrad.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("stride", [1, 2])
-def test_conv_subset_wgrad_matches_jax(stride):
+def _wgrad_oracle(stride):
     """n = 96, fraction 0.3: k = int(28.8) = 28, a floor (a ceiling would
-    be 29), which does not divide 2N; min_rows 4."""
+    be 29), which does not divide 2N; min_rows 4. JAX's y, dx and dw,
+    lowered: (lowered oracle, its arguments, the port's side)."""
     rng = np.random.default_rng(stride)
     x = rng.standard_normal((N2, 6, 6, 5)).astype(np.float32)
     w = rng.standard_normal((3, 3, 5, 7)).astype(np.float32)
     k = subset_rows(N2, 0.3, 4)
-    assert k == 28
     pad = ((1, 1), (1, 1))
 
     def conv(x_, w_):
         return jswg.conv_subset_wgrad(x_, w_, (stride, stride), pad, k)
 
-    @jax.jit
     def oracle(x_, w_, g_):
         y_, vjp = jax.vjp(conv, x_, w_)
         return (y_,) + vjp(g_)
 
     g = rng.standard_normal(jax.eval_shape(conv, x, w).shape).astype(
         np.float32)
-    y, jdx, jdw = oracle(x, w, g)
+    return jax.jit(oracle).lower(x, w, g), (x, w, g), dict(k=k)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv_subset_wgrad_matches_jax(stride, oracles):
+    """``_wgrad_oracle``'s case."""
+    compiled, (x, w, g), side = oracles[f"wgrad{stride}"]
+    k = side["k"]
+    assert k == 28
+    y, jdx, jdw = compiled.result()(x, w, g)
 
     tx = _nchw(x).requires_grad_()
     tw = _oihw(w).requires_grad_()
@@ -164,9 +173,9 @@ def test_conv_takes_the_plain_path_at_k_ge_n():
 # conv_subset_bn.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("ksize", [1, 3])
-def test_conv_subset_bn_matches_jax(dtype, ksize):
+def _subset_bn_oracle(dtype, ksize):
+    """JAX's conv_subset_bn outputs and gradients on a numpy case,
+    lowered: (lowered oracle, its arguments, the case)."""
     rng = np.random.default_rng(ksize)
     c, f, k, pad = 8, 12, 40, ksize // 2
     x = rng.standard_normal((N2, HW, HW, c)).astype(np.float32)
@@ -176,7 +185,6 @@ def test_conv_subset_bn_matches_jax(dtype, ksize):
     shift = rng.uniform(-0.3, 0.3, f).astype(np.float32)
     g = rng.standard_normal((N2, HW, HW, f)).astype(np.float32)
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
-    tdt = getattr(torch, dtype)
 
     def fn(x_, w_, ga, be, sh):
         return jfold.conv_subset_bn(((pad, pad), (pad, pad)), k, 1e-5, x_,
@@ -187,10 +195,24 @@ def test_conv_subset_bn_matches_jax(dtype, ksize):
         return outs, vjp((args[-1], jnp.zeros(f), jnp.zeros(f)))
 
     # Without excess precision XLA rounds every bf16 op as eager JAX does.
-    (jout, jmean, jvar), jgrads = jax.jit(
-        oracle, compiler_options={"xla_allow_excess_precision": False})(
-        jnp.asarray(x).astype(jdt), w, gamma, beta, shift,
-        jnp.asarray(g).astype(jdt))
+    args = (jnp.asarray(x).astype(jdt), w, gamma, beta, shift,
+            jnp.asarray(g).astype(jdt))
+    lowered = jax.jit(
+        oracle, compiler_options={"xla_allow_excess_precision": False}
+    ).lower(*args)
+    return lowered, args, dict(x=x, w=w, gamma=gamma, beta=beta,
+                               shift=shift, g=g, c=c, f=f, k=k, pad=pad)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ksize", [1, 3])
+def test_conv_subset_bn_matches_jax(dtype, ksize, oracles):
+    """``_subset_bn_oracle``'s case."""
+    compiled, args, case = oracles[f"subset_bn_{dtype}_{ksize}"]
+    x, w, gamma, beta = case["x"], case["w"], case["gamma"], case["beta"]
+    shift, g, f, k, pad = (case[n] for n in ("shift", "g", "f", "k", "pad"))
+    tdt = getattr(torch, dtype)
+    (jout, jmean, jvar), jgrads = compiled.result()(*args)
 
     tx = _nchw(x).to(tdt).requires_grad_()
     tw = _oihw(w).requires_grad_()
@@ -221,6 +243,88 @@ def test_conv_subset_bn_matches_jax(dtype, ksize):
 
 
 # ---------------------------------------------------------------------------
+# Within the port.
+# ---------------------------------------------------------------------------
+
+def _step(enc, x, r):
+    """One training forward and backward: (output, running statistics,
+    gradients), cloned."""
+    enc.train()
+    for p in enc.parameters():
+        p.grad = None
+    y = enc(x)
+    (y.float() * r).sum().backward()
+    return (y.detach().clone(),
+            {n: b.clone() for n, b in enc.named_buffers()},
+            {n: p.grad.clone() for n, p in enc.named_parameters()})
+
+
+def _bits(a, b):
+    (ya, sa, ga), (yb, sb, gb) = a, b
+    return (torch.equal(ya, yb) and sa.keys() == sb.keys()
+            and all(torch.equal(sa[n], sb[n]) for n in sa)
+            and ga.keys() == gb.keys()
+            and all(torch.equal(ga[n], gb[n]) for n in ga))
+
+
+@pytest.mark.parametrize("over", [
+    dict(bn_grad_mode="subset_st", bn3_shadow_stats=True,
+         bn12_shadow_stats=True),
+    dict(fold_bn_scales=True),
+    dict(bn_relu_fused=True),
+    dict(fuse_identity_blocks=True),
+    dict(conv_wgrad_fraction=0.5, conv_wgrad_min_rows=4,
+         bn_grad_mode="subset_st_w"),
+], ids=["shadow", "fold", "bn_relu_fused", "fused_blocks", "wgrad"])
+def test_remat_is_bit_identical_and_updates_statistics_once(over):
+    """remat_stages=(0, 1) against no remat from the same weights and
+    running statistics: outputs, running statistics and gradients bit for
+    bit. The blocks did run twice (forward and recompute), and the
+    statistics moved once: a second update, or a recompute shifted by the
+    updated mean, would change them."""
+    rng = np.random.default_rng(4)
+    x = _nchw(rng.standard_normal((N2, HW, HW, 3)).astype(np.float32))
+    r = torch.from_numpy(rng.standard_normal((N2, 64)).astype(np.float32))
+    runs, calls = [], []
+    for remat in ((), (0, 1)):
+        enc = _torch_encoder(remat_stages=remat, **over)
+        before = {n: b.clone() for n, b in enc.named_buffers()}
+        calls.append(0)
+        enc.layer1_0.bn1.register_forward_hook(
+            lambda *_: calls.__setitem__(-1, calls[-1] + 1))
+        runs.append(_step(enc, x, r))
+        assert all(not torch.equal(before[n], runs[-1][1][n])
+                   for n in before if n.endswith("running_mean"))
+    assert calls == [1, 2]
+    assert _bits(*runs)
+
+
+def test_scheduling_flags_are_bit_identical():
+    rng = np.random.default_rng(5)
+    x = _nchw(rng.standard_normal((N2, HW, HW, 3)).astype(np.float32))
+    r = torch.from_numpy(rng.standard_normal((N2, 32)).astype(np.float32))
+    runs = [_step(_torch_encoder(stage_sizes=(2,), **over), x, r)
+            for over in (dict(), dict(relu_from_output=True,
+                                      relu_barrier=True))]
+    assert _bits(*runs)
+
+
+@pytest.mark.parametrize("over", [
+    dict(fold_bn_scales=True), dict(bn12_shadow_stats=True),
+    dict(bn12_shadow_stages=(0,)), dict(conv_wgrad_fraction=0.5),
+    dict(remat_stages=(0, 1)), dict(relu_from_output=True),
+    dict(relu_barrier=True), dict(bn_grad_mode="subset_st_nomean"),
+    dict(bn_grad_mode="subset_st_w")], ids=lambda o: "-".join(o))
+def test_names_and_shapes_are_the_same_on_every_flag(over):
+    base = dict(stage_sizes=(2, 2), width=8, feature_dim=32)
+    want = {n: t.shape for n, t in SimCLR(ModelConfig(**base))
+            .state_dict().items()}
+    have = {n: t.shape for n, t in SimCLR(ModelConfig(**base, **over))
+            .state_dict().items()}
+    assert have == want
+
+
+# ---------------------------------------------------------------------------
 # Encoders against JAX's ResNetEncoder.
 # ---------------------------------------------------------------------------
 
@@ -241,10 +345,11 @@ def _torch_encoder(**over):
     return enc.to(memory_format=torch.channels_last)
 
 
-def _encoder_case(over):
-    """The port's and JAX's encoder with ``over`` on the same weights,
-    input and cotangent: train outputs, running statistics and parameter
-    gradients, then eval outputs with the updated statistics."""
+def _encoder_oracle(over):
+    """The port's encoder with ``over``, its input, cotangent and weights,
+    and JAX's oracle on them, lowered (train outputs, running statistics
+    and parameter gradients, then eval outputs with the updated
+    statistics): (lowered oracle, its arguments, the port's side)."""
     rng = np.random.default_rng(2)
     x = rng.standard_normal((N2, HW, HW, 3)).astype(np.float32)
     enc = _torch_encoder(**over)
@@ -254,7 +359,6 @@ def _encoder_case(over):
     jenc = JResNetEncoder(**ENC, dtype=jnp.float32, bn_dtype=jnp.float32,
                           **over)
 
-    @jax.jit
     def oracle(p, s):
         def loss(p_):
             y, up = jenc.apply({"params": p_, "batch_stats": s},
@@ -266,7 +370,15 @@ def _encoder_case(over):
                         train=False)
         return y, st, grads, ye
 
-    jy, jst, jgrads, jye = jax.device_get(oracle(params, stats))
+    return (jax.jit(oracle).lower(params, stats), (params, stats),
+            dict(x=x, r=r, enc=enc))
+
+
+def _encoder_case(compiled, args, side):
+    """The port's and JAX's encoder on the same weights, input and
+    cotangent (``_encoder_oracle``)."""
+    x, r, enc = side["x"], side["r"], side["enc"]
+    jy, jst, jgrads, jye = jax.device_get(compiled(*args))
     enc.train()
     ty = enc(_nchw(x))
     (ty * torch.from_numpy(r)).sum().backward()
@@ -291,9 +403,41 @@ _ENCODER_CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def oracles():
+    """The module's JAX oracles (conv_subset_wgrad's, conv_subset_bn's,
+    the whole step's and the six encoder cases'), traced here, before the
+    first test, and compiled on a thread pool: XLA releases the GIL while it compiles, which is most of
+    an oracle's time, so the compiles overlap one another and the tests
+    that run meanwhile. name -> (future of the compiled oracle, its
+    arguments, the port's side)."""
+    pool = ThreadPoolExecutor(max_workers=4)
+    futures = {}
+
+    def submit(name, built):
+        lowered, args, side = built
+        futures[name] = (pool.submit(lowered.compile), args, side)
+
+    # The small ones first: their tests come first.
+    for stride in (1, 2):
+        submit(f"wgrad{stride}", _wgrad_oracle(stride))
+    for dtype in ("float32", "bfloat16"):
+        for ksize in (1, 3):
+            submit(f"subset_bn_{dtype}_{ksize}",
+                   _subset_bn_oracle(dtype, ksize))
+    submit("whole_step", _whole_step_oracle())
+    for name, over in _ENCODER_CASES.items():
+        submit(name, _encoder_oracle(over))
+    yield futures
+    for future, _, _ in futures.values():
+        future.result()
+    pool.shutdown()
+
+
 @pytest.fixture(scope="module", params=list(_ENCODER_CASES))
-def encoder_case(request):
-    return request.param, _encoder_case(_ENCODER_CASES[request.param])
+def encoder_case(request, oracles):
+    compiled, args, side = oracles[request.param]
+    return request.param, _encoder_case(compiled.result(), args, side)
 
 
 def test_encoder_matches_jax(encoder_case):
@@ -412,88 +556,6 @@ def test_unknown_grad_mode_is_refused():
 
 
 # ---------------------------------------------------------------------------
-# Within the port.
-# ---------------------------------------------------------------------------
-
-def _step(enc, x, r):
-    """One training forward and backward: (output, running statistics,
-    gradients), cloned."""
-    enc.train()
-    for p in enc.parameters():
-        p.grad = None
-    y = enc(x)
-    (y.float() * r).sum().backward()
-    return (y.detach().clone(),
-            {n: b.clone() for n, b in enc.named_buffers()},
-            {n: p.grad.clone() for n, p in enc.named_parameters()})
-
-
-def _bits(a, b):
-    (ya, sa, ga), (yb, sb, gb) = a, b
-    return (torch.equal(ya, yb) and sa.keys() == sb.keys()
-            and all(torch.equal(sa[n], sb[n]) for n in sa)
-            and ga.keys() == gb.keys()
-            and all(torch.equal(ga[n], gb[n]) for n in ga))
-
-
-@pytest.mark.parametrize("over", [
-    dict(bn_grad_mode="subset_st", bn3_shadow_stats=True,
-         bn12_shadow_stats=True),
-    dict(fold_bn_scales=True),
-    dict(bn_relu_fused=True),
-    dict(fuse_identity_blocks=True),
-    dict(conv_wgrad_fraction=0.5, conv_wgrad_min_rows=4,
-         bn_grad_mode="subset_st_w"),
-], ids=["shadow", "fold", "bn_relu_fused", "fused_blocks", "wgrad"])
-def test_remat_is_bit_identical_and_updates_statistics_once(over):
-    """remat_stages=(0, 1) against no remat from the same weights and
-    running statistics: outputs, running statistics and gradients bit for
-    bit. The blocks did run twice (forward and recompute), and the
-    statistics moved once: a second update, or a recompute shifted by the
-    updated mean, would change them."""
-    rng = np.random.default_rng(4)
-    x = _nchw(rng.standard_normal((N2, HW, HW, 3)).astype(np.float32))
-    r = torch.from_numpy(rng.standard_normal((N2, 64)).astype(np.float32))
-    runs, calls = [], []
-    for remat in ((), (0, 1)):
-        enc = _torch_encoder(remat_stages=remat, **over)
-        before = {n: b.clone() for n, b in enc.named_buffers()}
-        calls.append(0)
-        enc.layer1_0.bn1.register_forward_hook(
-            lambda *_: calls.__setitem__(-1, calls[-1] + 1))
-        runs.append(_step(enc, x, r))
-        assert all(not torch.equal(before[n], runs[-1][1][n])
-                   for n in before if n.endswith("running_mean"))
-    assert calls == [1, 2]
-    assert _bits(*runs)
-
-
-def test_scheduling_flags_are_bit_identical():
-    rng = np.random.default_rng(5)
-    x = _nchw(rng.standard_normal((N2, HW, HW, 3)).astype(np.float32))
-    r = torch.from_numpy(rng.standard_normal((N2, 32)).astype(np.float32))
-    runs = [_step(_torch_encoder(stage_sizes=(2,), **over), x, r)
-            for over in (dict(), dict(relu_from_output=True,
-                                      relu_barrier=True))]
-    assert _bits(*runs)
-
-
-@pytest.mark.parametrize("over", [
-    dict(fold_bn_scales=True), dict(bn12_shadow_stats=True),
-    dict(bn12_shadow_stages=(0,)), dict(conv_wgrad_fraction=0.5),
-    dict(remat_stages=(0, 1)), dict(relu_from_output=True),
-    dict(relu_barrier=True), dict(bn_grad_mode="subset_st_nomean"),
-    dict(bn_grad_mode="subset_st_w")], ids=lambda o: "-".join(o))
-def test_names_and_shapes_are_the_same_on_every_flag(over):
-    base = dict(stage_sizes=(2, 2), width=8, feature_dim=32)
-    want = {n: t.shape for n, t in SimCLR(ModelConfig(**base))
-            .state_dict().items()}
-    have = {n: t.shape for n, t in SimCLR(ModelConfig(**base, **over))
-            .state_dict().items()}
-    assert have == want
-
-
-# ---------------------------------------------------------------------------
 # One whole training step with the flags combined.
 # ---------------------------------------------------------------------------
 
@@ -505,12 +567,11 @@ COMBINED = dict(feature_dim=512, width=16, stage_sizes=(2, 1, 1, 1),
 BATCH = 40
 
 
-def test_whole_step_with_the_flags_combined_matches_jax():
-    """One pretrain step on both engines from the same weights, batch and
-    draws. JAX's runs ``optax.sgd(-1e6)``, so that its update is 1e6
-    times the gradient, which comes back to float32 precision; the port's
-    gradients are in ``.grad`` after its Adam step (Adam adds the L2 term
-    to a copy)."""
+def _whole_step_oracle():
+    """One pretrain step of the port's and JAX's engines from the same
+    weights, batch and draws, JAX's lowered: (lowered step, its arguments,
+    the port's side). JAX's runs ``optax.sgd(-1e6)``, so that its update
+    is 1e6 times the gradient, which comes back to float32 precision."""
     train = dict(batch_size=BATCH, temperature=0.5)
     tc = tcfg.Config(model=ModelConfig(**COMBINED),
                      train=tcfg.TrainConfig(**train))
@@ -524,9 +585,21 @@ def test_whole_step_with_the_flags_combined_matches_jax():
     jengine = jax_build_engine(jc, JSimCLR(cfg=jc.model), tx,
                                use_pallas_ntxent=False)
     images, _ = jds.synthetic_dataset(BATCH, img_size=32, seed=3)
-    key = jax.random.key(10)
-    jstate, (jloss, _) = jengine.train_step_direct(
-        jstate, jnp.asarray(images), key)
+    args = (jstate, jnp.asarray(images), jax.random.key(10))
+    return (jengine.train_step_direct.lower(*args), args,
+            dict(tc=tc, model=model, state=state, engine=engine,
+                 params=params, images=images))
+
+
+def test_whole_step_with_the_flags_combined_matches_jax(oracles):
+    """One pretrain step on both engines from the same weights, batch and
+    draws (``_whole_step_oracle``); the port's gradients are in ``.grad``
+    after its Adam step (Adam adds the L2 term to a copy)."""
+    compiled, args, side = oracles["whole_step"]
+    tc, model, state = side["tc"], side["model"], side["state"]
+    engine, params, images = side["engine"], side["params"], side["images"]
+    key = args[2]
+    jstate, (jloss, _) = compiled.result()(*args)
     k1, k2 = jax.random.split(jax.random.split(key)[0])
     pair = (jax_view_params(k1, BATCH, 32, 32, tc.augment),
             jax_view_params(k2, BATCH, 32, 32, tc.augment))
