@@ -50,25 +50,30 @@ Phases, each printed as one line with its result and wall time:
    backward through B3: 32 B3a, 16 B3b and 4 B3c launches a step.
 9. conv: kernels B4f/B4w (layer1's C = 64 conv: forward, input and
    weight gradient) and B5f/B5w (Winograd F(2x2,3x3): forward/input
-   gradient and dU) against their plain versions at the path's shapes
-   and at ragged ones (B4: W = 7, W = 17 and W = 300, which takes five
-   column tiles); the autograd functions against autograd of
+   gradient and dU) against their plain versions at the training step's
+   shapes, at the serving phase's (512 images) and at ragged ones (B4:
+   W = 7, W = 17 and W = 300, which takes five column tiles); the
+   autograd functions against autograd of
    their plain forwards; refused operands must raise. Each kernel is
    timed beside its plain version and the cuDNN call that computes the
    same function (``F.conv2d`` or ``aten.convolution_backward``), B4f
    and B5f also as the input gradient beside cuDNN's dx, with each factor
-   over cuDNN at layer1 (B4) and layer2-4 (B5).
+   over cuDNN at layer1 (B4) and layer2-4 (B5); B4f's and B5f's times
+   are their kernels' device time by torch.profiler (the wrapper's
+   CUDA-event time and host ms to enqueue a call printed beside).
 10. conv_slice, conv_profile: phases 6 and 7 with
    ``ModelConfig(conv64_pallas=True, winograd_conv2=True)``: layer1's
    three conv2 through B4 (6 B4f, 3 B4w launches a step), the ten other
    stride-1 conv2 through B5 (20 B5f, 10 B5w).
 11. bottleneck: kernels B6f/B6b (the fused identity bottleneck, forward
    and recompute-backward) against their plain versions at the four
-   stage shapes of ResNet-50 at 1,024 images and at two ragged ones; the
+   stage shapes of ResNet-50 at 1,024 images, at 512 (the serving
+   phase's) and at two ragged ones; the
    autograd function against autograd of the plain forward; refused
    operands must raise; no B6 kernel may spill (ptxas). Each kernel is
    timed beside its plain version and the unfused block (cuDNN convs and
-   PyTorch elementwise, forward and forward + backward). Then b6_split:
+   PyTorch elementwise, forward and forward + backward); B6f's time is
+   its tile kernel's device time, as B4f's. Then b6_split:
    one call of each at each stage under torch.profiler, device time by
    kernel, and each wrapper's time with its packing done beforehand.
 12. fused_slice, fused_profile: phases 6 and 7 with
@@ -167,10 +172,16 @@ Phases, each printed as one line with its result and wall time:
    on the card against the CPU on the same features; pos_cos > neg_cos;
    the metric pass's images/s.
 25. serving: ``export_forward`` of the export's eval forward on the card
-   at batch 512 and ``load_forward``: the artifact against the eager
-   forward (relative norm within 1e-2), no kernel launched, both
-   forwards' images/s and the artifact's size; the three kernel flags
-   refused by name.
+   at batch 512 and ``load_forward``, on the default path and from the
+   same weights under ``conv64_pallas`` with ``winograd_conv2`` and under
+   ``fuse_identity_blocks``: each artifact against the eager forward
+   (relative norm within 1e-2; bit for bit expected), each path's eager
+   (h, z) against a float32 forward of the same weights (a kernel path
+   at most twice the default bf16 path's error), one forward of each
+   counted (no kernel of the port; B4f 3 and B5f 10; B6f 12), the
+   artifact's graph checked for one operator node a launch and no
+   convolution in a kernel's place, both forwards' images/s, device ms
+   and host ms to enqueue, and the artifact's size.
 26. stl10: ``Config.for_dataset('stl10')`` at full width (the 7x7
    stride-2 stem, the max-pool, the 9-tap blur), batch 256, 2,048
    synthetic 96x96 images: ``pretrain()`` for 2 epochs of graph replays
@@ -198,6 +209,7 @@ limit, and as the last line ``{"ok": true, "device": {...}}``.
                                      # of an earlier tree)
     python3 chip_smoke.py b2_trace   # B2 blocks' phase clocks
     python3 chip_smoke.py measure    # phases 6, 7 and 27 only
+    python3 chip_smoke.py serving    # phases 2, 16 and three times 25
  Any failure
 exits non-zero without that line; so does a run without a GPU or outside
 the repository. Writes nothing but the kernel build under
@@ -458,36 +470,47 @@ _B1_SHAPES = ((1024, 128), (2048, 128), (200, 128), (200, 40), (256, 2048),
               (64, 3))
 
 
+# Profiler sessions _kernel_ms runs at most: one archive run's color
+# phase saw none of 20 ``imgs.clone()`` copies in its session.
+_PROFILER_SESSIONS = 2
+
+
 def _kernel_ms(torch, calls, iters=20):
     """Mean device time of one launch of each kernel in ``calls`` (the
     part of its name to match: a call), over ``iters`` rounds of the calls
     under one torch.profiler session: the wrappers' host time (Python,
     allocations, the ctypes call) is left out, which event times around a
     call of a few us cannot do. The profiler may miss a launch at its
-    start, so a mean is over the launches it saw (at least half)."""
+    start, so a mean is over the launches it saw (at least half). It has
+    also been seen to miss every copy of a session (``imgs.clone()``'s
+    Memcpy DtoD, once in six runs of the color phase on the H100), so a
+    session that saw fewer than half of a kernel's launches is run again,
+    up to ``_PROFILER_SESSIONS`` in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for call in calls.values():
         call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            for call in calls.values():
-                call()
-        torch.cuda.synchronize()
-    times = {key: [] for key in calls}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = next((k for k in calls if k in e.name), None)
-            if key is not None:
-                times[key].append(e.time_range.elapsed_us() / 1e3)
-    out = {}
-    for key, ts in times.items():
-        if 2 * len(ts) < iters:
-            raise AssertionError(f"the profiler saw {len(ts)} launches of "
-                                 f"{key} in {iters} rounds")
-        out[key] = sum(ts) / len(ts)
-    return out
+    for _ in range(_PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                for call in calls.values():
+                    call()
+            torch.cuda.synchronize()
+        times = {key: [] for key in calls}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                key = next((k for k in calls if k in e.name), None)
+                if key is not None:
+                    times[key].append(e.time_range.elapsed_us() / 1e3)
+        short = {key: len(ts) for key, ts in times.items()
+                 if 2 * len(ts) < iters}
+        if not short:
+            return {key: sum(ts) / len(ts) for key, ts in times.items()}
+    key, seen = next(iter(short.items()))
+    raise AssertionError(f"the profiler saw {seen} launches of {key} in "
+                         f"{iters} rounds, in each of {_PROFILER_SESSIONS} "
+                         f"sessions")
 
 
 @phase("ntxent")
@@ -953,13 +976,18 @@ def bn_relu_phase(torch):
 # B4 comparisons: (N, H, W) at C = 64. The first is layer1 at batch 512
 # (2N = 1,024 images); the ragged ones have partial tiles and H != W, W
 # below 8, W above 8 and not a multiple of 8, and W above 256 (five
-# column tiles, each with its own halo).
-_B4_SHAPES = ((1024, 32, 32), (3, 5, 7), (2, 3, 300), (5, 9, 17))
+# column tiles, each with its own halo); the last is layer1 of the
+# serving phase's eval forward (512 images).
+_B4_SHAPES = ((1024, 32, 32), (3, 5, 7), (2, 3, 300), (5, 9, 17),
+              (512, 32, 32))
 # B5 comparisons: (N, C, K, H, W). The first three are the path's
 # stride-1 conv2 of layer2, layer3 and layer4; the ragged one has an odd
-# batch, C != K, H != W and a partial last block of tiles.
+# batch, C != K, H != W and a partial last block of tiles; the last three
+# are the first three in the serving phase's eval forward (512 images).
 _B5_SHAPES = ((1024, 128, 128, 16, 16), (1024, 256, 256, 8, 8),
-              (1024, 512, 512, 4, 4), (3, 96, 160, 6, 10))
+              (1024, 512, 512, 4, 4), (3, 96, 160, 6, 10),
+              (512, 128, 128, 16, 16), (512, 256, 256, 8, 8),
+              (512, 512, 512, 4, 4))
 # Tolerance of a bf16 output made by one rounding of float32 sums taken in
 # another order: one bf16 ulp of the element (2**-7 relative), plus
 # 1e-5 of the largest output for elements near 0.
@@ -1007,6 +1035,31 @@ def _conv_bwd_library(torch, g, x, w16, mask):
         g, x, w16, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, mask)
 
 
+def _enqueue_ms(torch, fn, iters=20):
+    """Host ms that one fn() call takes to return, over ``iters`` calls
+    from an idle device (their launches enqueued, not finished)."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - start) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def _op_device_timing(torch, t, kernel, call):
+    """For an operator's wrapper (B4f, B5f, B6f): ``t["ms"]`` becomes the
+    device time of its kernel (``kernel``: part of the kernel's name) by
+    torch.profiler, as B1's and B2's are; the CUDA-event time around the
+    wrapper, which holds the dispatcher's host time where the call is
+    host-bound, moves to ``wrapper_ms``, and ``host_ms`` is the host time
+    to enqueue one call (taken first: a profiler session just ended may
+    still slow the host's launches)."""
+    t["wrapper_ms"], t["host_ms"] = t["ms"], _enqueue_ms(torch, call)
+    t["ms"] = _kernel_ms(torch, {kernel: call})[kernel]
+    return t
+
+
 def _conv_timing(torch, kernel, plain, library, n_bytes, flops):
     t = dict(ms=median_ms(torch, kernel), plain_ms=median_ms(torch, plain),
              library_ms=median_ms(torch, library))
@@ -1045,17 +1098,22 @@ def _b4(torch, F, k, gen, notes):
             lambda: k.conv3x3_c64_plain(x, wt),
             lambda: F.conv2d(x, w16, padding=1), io_bytes + 9 * 64 * 64 * 2,
             flops)
+        _op_device_timing(torch, timing["fwd"], "conv64_fwd_kernel",
+                          lambda: k.conv_c64(x, wt))
         timing["wgrad"] = _conv_timing(
             torch, lambda: k.wgrad_c64(x, g),
             lambda: k.wgrad_c64_plain(x, g),
             _conv_bwd_library(torch, g, x, w16, [False, True, False]),
             io_bytes + 64 * 576 * 4, flops)
-        dx_ms = median_ms(torch, lambda: k.conv_c64(g, rot))
+        dx_ms = _kernel_ms(torch, {"conv64_fwd_kernel": lambda: k.conv_c64(
+            g, rot)})["conv64_fwd_kernel"]
         dx_lib = median_ms(torch, _conv_bwd_library(
             torch, g, x, w16, [True, False, False]))
         t_fwd, t_wg = timing["fwd"], timing["wgrad"]
         notes.append(
-            f"B4 at {where}: fwd {t_fwd['ms']:.4f} ms (plain "
+            f"B4 at {where}: fwd {t_fwd['ms']:.4f} ms device (wrapper "
+            f"{t_fwd['wrapper_ms']:.4f} by events, {t_fwd['host_ms']:.4f} "
+            f"host ms to enqueue a call; plain "
             f"{t_fwd['plain_ms']:.4f}, library {t_fwd['library_ms']:.4f}, "
             f"{t_fwd['ms'] / t_fwd['library_ms']:.2f}x; bound "
             f"{t_fwd['bound_ms']:.4f} {t_fwd['bound_by']}); dx {dx_ms:.4f} "
@@ -1111,6 +1169,8 @@ def _b5(torch, F, k, rot180_swap, gen, notes):
             lambda: k.winograd_fwd_plain(x, u),
             lambda: F.conv2d(x, w16, padding=1), io_bytes + 16 * c * kk * 2,
             flops)
+        _op_device_timing(torch, t_fwd, "winograd_fwd_kernel",
+                          lambda: k.winograd_fwd(x, u))
         t_dw = _conv_timing(
             torch, lambda: k.winograd_dw(x, g),
             lambda: k.winograd_dw_plain(x, g),
@@ -1118,11 +1178,14 @@ def _b5(torch, F, k, rot180_swap, gen, notes):
             io_bytes + 16 * c * kk * 4, flops)
         # B5f as the input gradient (the rotated, swapped filter) beside
         # cuDNN's dx.
-        dx_ms = median_ms(torch, lambda: k.winograd_fwd(g, u_rot))
+        dx_ms = _kernel_ms(torch, {"winograd_fwd_kernel": lambda: (
+            k.winograd_fwd(g, u_rot))})["winograd_fwd_kernel"]
         dx_lib = median_ms(torch, _conv_bwd_library(
             torch, g, x, w16, [True, False, False]))
         notes.append(
-            f"B5 at {where}: fwd {t_fwd['ms']:.4f} ms (plain "
+            f"B5 at {where}: fwd {t_fwd['ms']:.4f} ms device (wrapper "
+            f"{t_fwd['wrapper_ms']:.4f} by events, {t_fwd['host_ms']:.4f} "
+            f"host ms to enqueue a call; plain "
             f"{t_fwd['plain_ms']:.4f}, library {t_fwd['library_ms']:.4f}, "
             f"{t_fwd['ms'] / t_fwd['library_ms']:.2f}x; bound "
             f"{t_fwd['bound_ms']:.4f} {t_fwd['bound_by']}); dx {dx_ms:.4f} "
@@ -1209,16 +1272,20 @@ def conv_phase(torch):
     return {"timing": rows,
             "summary": "B4f/B5f within one bf16 ulp of the plain versions, "
                        "B4w/B5w sums within 2e-5 of sum|terms|, at the "
-                       "path's and ragged shapes; refused operands raise; "
+                       "training step's, the serving forward's and ragged "
+                       "shapes; refused operands raise; "
                        + times}
 
 
 # B6 comparisons: (N, C, H, W) with x of 4C channels. The first four are
 # the identity blocks of layer1-4 at batch 512 (2N = 1,024 images); the
 # ragged ones have an odd batch, H = W = 7, and tiles that span images and
-# end past the batch.
+# end past the batch; the last four are the first four in the serving
+# phase's eval forward (512 images).
 _B6_SHAPES = ((1024, 64, 32, 32), (1024, 128, 16, 16), (1024, 256, 8, 8),
-              (1024, 512, 4, 4), (5, 128, 7, 7), (3, 512, 7, 7))
+              (1024, 512, 4, 4), (5, 128, 7, 7), (3, 512, 7, 7),
+              (512, 64, 32, 32), (512, 128, 16, 16), (512, 256, 8, 8),
+              (512, 512, 4, 4))
 _B6_NAMES = ("dx", "dw1", "dw2", "dw3", "dA1", "dB1", "dA2", "dB2", "dA3",
              "dB3")
 
@@ -1340,7 +1407,7 @@ def _b6_split(torch, k, gen):
     and one bottleneck_bwd call under torch.profiler, device time by
     kernel name; and each wrapper's median time beside the same wrapper
     with its weight and affine packing done beforehand (``pack_weights``
-    and ``_pack_affines`` answered from a cache), which is the C entry
+    and ``pack_affines`` answered from a cache), which is the C entry
     point's time plus the wrapper's checks and allocations: the
     difference is what the packing costs a call. Works on any revision
     of ``ops/kernels/bottleneck.py`` whose wrappers pack through those two
@@ -1367,7 +1434,7 @@ def _b6_split(torch, k, gen):
                     by_name[key] = (by_name.get(key, 0.0)
                                     + e.time_range.elapsed_us() / 1e3)
             wrapper = median_ms(torch, call)
-            pack, pack_aff = k.pack_weights, k._pack_affines
+            pack, pack_aff = k.pack_weights, k.pack_affines
             cache = {}
 
             def cached(fn, tag):
@@ -1380,11 +1447,11 @@ def _b6_split(torch, k, gen):
                     return cache[key]
                 return run
             k.pack_weights = cached(pack, "w")
-            k._pack_affines = cached(pack_aff, "a")
+            k.pack_affines = cached(pack_aff, "a")
             try:
                 raw = median_ms(torch, call)
             finally:
-                k.pack_weights, k._pack_affines = pack, pack_aff
+                k.pack_weights, k.pack_affines = pack, pack_aff
             split = "; ".join(f"{ms:.4f} {kname}" for kname, ms in sorted(
                 by_name.items(), key=lambda kv: -kv[1]))
             print(f"  B6 split {where} {name}: wrapper {wrapper:.4f} ms, "
@@ -1530,9 +1597,13 @@ def bottleneck_phase(torch, ptxas):
         t["bwd"]["bound_ms"], t["bwd"]["bound_by"] = bound_ms(
             3 * px * f * 2 + w_elems * (2 + 4) + 12 * c * 4 * 2, 3 * flops,
             PEAK_BF16_FLOPS)
+        _op_device_timing(torch, t["fwd"], f"bottleneck_tile_kernel<{c}, 0>",
+                          lambda: k.bottleneck_fwd(x, *ws, aff))
         stages[c] = t
         notes.append(
-            f"B6 at {where}: fwd {t['fwd']['ms']:.4f} ms (plain "
+            f"B6 at {where}: fwd {t['fwd']['ms']:.4f} ms device (wrapper "
+            f"{t['fwd']['wrapper_ms']:.4f} by events, "
+            f"{t['fwd']['host_ms']:.4f} host ms to enqueue a call; plain "
             f"{t['fwd']['plain_ms']:.4f}, unfused "
             f"{t['fwd']['library_ms']:.4f}, bound "
             f"{t['fwd']['bound_ms']:.4f} {t['fwd']['bound_by']}); "
@@ -1557,7 +1628,9 @@ def bottleneck_phase(torch, ptxas):
                        "elements and 2e-3 in relative norm, B6b within 2e-2 "
                        "(dx) and 3e-2 (sums) in relative norm of the plain "
                        "versions at the four "
-                       "stage shapes and two ragged ones; autograd function"
+                       "stage shapes of the training step and of the "
+                       "serving forward, and two ragged ones; autograd "
+                       "function"
                        f" within 1e-2 ({worst:.2e}); refused operands "
                        f"raise; no B6 kernel spills ({len(regs)} ptxas "
                        "usages); " + "; ".join(
@@ -3129,8 +3202,8 @@ def mine_phase(torch, smi, pre):
 _METRIC_ATOL = {"nmi": 2e-3}
 _METRIC_TOL = 1e-4
 # The loaded artifact against the eager forward, in relative norm: both
-# run the same bf16 cuDNN convolutions and BN passes, but the exported
-# graph may pick other algorithms.
+# run the same bf16 cuDNN convolutions, kernels and BN passes, but the
+# exported graph may pick other algorithms.
 _SERVE_REL = 1e-2
 
 
@@ -3260,76 +3333,171 @@ def analysis_phase(torch, smi, pre):
                        f"{max(worst.values()):.2e}"}
 
 
+# The serving phase's paths: (name, ModelConfig flags, launches of one
+# forward, convolutions the kernels replace). ResNet-50 has 53
+# convolutions: the stem, 16 blocks of three, 4 downsamples.
+_SERVE_PATHS = (
+    ("default", {}, {}, 0),
+    # layer1's three conv2 through B4f, the ten other stride-1 conv2
+    # through B5f.
+    ("conv64 + winograd", dict(conv64_pallas=True, winograd_conv2=True),
+     {"conv64_fwd": 3, "winograd_fwd": 10}, 13),
+    # The 12 identity blocks through B6f.
+    ("fuse_identity_blocks", dict(fuse_identity_blocks=True),
+     {"bottleneck_fwd": 12}, 36),
+)
+_SERVE_CONVS = 53
+# A counter's name -> its operator in the artifact's graph.
+_SERVE_OPS = {"conv64_fwd": "conv_c64", "winograd_fwd": "winograd_fwd",
+              "bottleneck_fwd": "bottleneck_fwd"}
+
+
+def _graph_ops(module):
+    """Nodes of the port's operators by name, and aten convolutions, in a
+    loaded artifact's graph."""
+    ops, convs = {}, 0
+    for node in module.graph.nodes:
+        name = str(node.target) if node.op == "call_function" else ""
+        if name.startswith("simclr_tpu_torch."):
+            key = name.split(".")[1]
+            ops[key] = ops.get(key, 0) + 1
+        convs += name.startswith("aten.conv")
+    return ops, convs
+
+
+# Each path's eager (h, z) against a float32 forward of the same weights
+# (the default path, cuDNN without TF32), in relative norm: a kernel
+# path's error at most _SERVE_F32_RATIO times the default bf16 path's.
+# B4f and B5f are within one bf16 ulp of their plain versions, B6f at all
+# but 1e-3 of its elements, so a kernel path rounds about as much as
+# cuDNN's bf16 path does. Its distance to the default path's (h, z) is
+# printed beside it.
+_SERVE_F32_RATIO = 2.0
+
+
+def _forward_device_ms(torch, fn, calls=3):
+    """Device ms of one fn() call: the device time torch.profiler saw over
+    ``calls`` calls, over their number."""
+    _, _, by_name = _profiled(torch, lambda: [fn() for _ in range(calls)])
+    return sum(by_name.values()) / calls
+
+
 @phase("serving")
 def serving_phase(torch, smi, pre, tmp):
     """``export_forward`` of the export's full-width eval forward on the
-    card for NHWC batches of 512, ``load_forward``, and the loaded
-    artifact against the eager forward on 512 test views (relative norm
-    within ``_SERVE_REL``); both forwards' images/s and the artifact's
-    size; no kernel of the port runs on the default eval path (counted).
-    Each kernel flag (``conv64_pallas``, ``winograd_conv2``,
-    ``fuse_identity_blocks``) must be refused by name."""
+    card for NHWC batches of 512 and ``load_forward``, on the default path
+    and, from the same weights, under ``conv64_pallas`` with
+    ``winograd_conv2`` and under ``fuse_identity_blocks``
+    (``_SERVE_PATHS``). Each loaded artifact against the eager forward
+    under the same flags on 512 test views (relative norm within
+    ``_SERVE_REL``; bit for bit is expected, the max |diff| is printed),
+    and each path's eager forward against a float32 forward of the same
+    weights: a kernel path's error at most ``_SERVE_F32_RATIO`` times the
+    default path's, so the kernels at this forward's own shapes against
+    cuDNN's convolutions. Counted from 0 for one forward of each:
+    the artifact and the eager forward launch B4f 3 and B5f 10, or B6f
+    12, or none of the port's kernels, and nothing else; the artifact's
+    graph holds one operator node a launch and no convolution in the
+    kernels' place. Export s, load s, artifact MB, and both forwards'
+    images/s, device ms and host ms to enqueue."""
     import os
-    from simclr_tpu_torch.config import CIFAR10, ModelConfig
-    from simclr_tpu_torch.models.simclr import SimCLR
+    from simclr_tpu_torch.config import CIFAR10, Config, ModelConfig
     from simclr_tpu_torch.ops.augment import augment_test
-    from simclr_tpu_torch.utils.serving import (
-        KERNEL_FLAGS, export_forward, load_forward)
+    from simclr_tpu_torch.utils.serving import export_forward, load_forward
 
-    model = _load_export(torch, pre["export"])
-    path = f"{tmp}/forward.pt2"
     x = augment_test(pre["split"].train.images[:512], CIFAR10)
-    reset_counts()
-    start = time.perf_counter()
-    export_forward(path, model, tuple(x.shape))
-    export_s = time.perf_counter() - start
-    start = time.perf_counter()
-    served = load_forward(path)
-    load_s = time.perf_counter() - start
-    model.eval()
+    f32 = _load_export(torch, pre["export"], Config(model=ModelConfig(
+        compute_dtype="float32", bn_dtype="float32"))).eval()
+    with torch.no_grad():
+        exact = f32(x.permute(0, 3, 1, 2), None)
+    del f32
+    done, default = [], None
+    for name, flags, launches, replaced in _SERVE_PATHS:
+        model = _load_export(torch, pre["export"],
+                             Config(model=ModelConfig(**flags)))
+        path = f"{tmp}/forward.pt2"
+        # export_forward runs one real forward before its trace.
+        start = time.perf_counter()
+        export_forward(path, model, tuple(x.shape))
+        export_s = time.perf_counter() - start
+        start = time.perf_counter()
+        served = load_forward(path)
+        load_s = time.perf_counter() - start
+        model.eval()
+        ops, convs = _graph_ops(served)
+        want_ops = {_SERVE_OPS[c]: n for c, n in launches.items()}
+        if ops != want_ops or convs != _SERVE_CONVS - replaced:
+            raise AssertionError(f"{name}: the artifact's graph holds "
+                                 f"{ops} and {convs} convolutions, "
+                                 f"expected {want_ops} and "
+                                 f"{_SERVE_CONVS - replaced}")
 
-    def eager():
-        with torch.no_grad():
-            return model(x.permute(0, 3, 1, 2), None)
+        def eager():
+            with torch.no_grad():
+                return model(x.permute(0, 3, 1, 2), None)
 
-    def loaded():
-        with torch.no_grad():
-            return served(x)
+        def loaded():
+            with torch.no_grad():
+                return served(x)
 
-    (h, z), (sh, sz) = eager(), loaded()
-    torch.cuda.synchronize()
-    _expect_counts(read_counts(), {}, "export and forwards")
-    rel = max(_rel_norm(sh, h), _rel_norm(sz, z))
-    err = max((sh - h).abs().max().item(), (sz - z).abs().max().item())
-    if not (rel <= _SERVE_REL and sh.shape == h.shape
-            and sz.shape == z.shape):
-        raise AssertionError(f"the artifact is {rel:.2e} off the eager "
-                             f"forward")
-    eager_ms = median_ms(torch, eager, iters=10)
-    served_ms = median_ms(torch, loaded, iters=10)
-    size_mb = os.path.getsize(path) / 1e6
-    refused = []
-    for flag in KERNEL_FLAGS:
-        tiny = SimCLR(ModelConfig(stage_sizes=(1, 1, 1, 1), width=16,
-                                  **{flag: True}))
-        try:
-            export_forward(f"{tmp}/refused.pt2", tiny, (4, 32, 32, 3))
-        except ValueError as e:
-            if flag not in str(e):
-                raise
-            refused.append(flag)
+        outs = []
+        for what, fn in (("artifact", loaded), ("eager", eager)):
+            reset_counts()
+            outs.append(fn())
+            torch.cuda.synchronize()
+            _expect_counts(read_counts(), launches,
+                           f"{name}: one {what} forward")
+        (sh, sz), (h, z) = outs
+        rel = max(_rel_norm(sh, h), _rel_norm(sz, z))
+        err = max((sh - h).abs().max().item(), (sz - z).abs().max().item())
+        if not (rel <= _SERVE_REL and sh.shape == h.shape
+                and sz.shape == z.shape):
+            raise AssertionError(f"{name}: the artifact is {rel:.2e} off "
+                                 f"the eager forward")
+        f32_err = {k: _rel_norm(a, b) for k, a, b in zip("hz", (h, z), exact)}
+        if default is None:
+            default = (h, z), f32_err
+            vs_default = (f"; eager against float32 h {f32_err['h']:.2e}, "
+                          f"z {f32_err['z']:.2e}")
         else:
-            raise AssertionError(f"{flag} was exported")
-    print(f"  serving: export {export_s:.1f} s, load {load_s:.1f} s, "
-          f"artifact {size_mb:.1f} MB; eager {512e3 / eager_ms:.1f} "
-          f"images/s ({eager_ms:.3f} ms a batch of 512), artifact "
-          f"{512e3 / served_ms:.1f} images/s ({served_ms:.3f} ms); on {smi}")
-    del model, served, h, z, sh, sz
-    _release(torch, {})
-    return {"summary": f"batch 512, h and z of the loaded artifact "
-                       f"{rel:.2e} off the eager forward in relative norm "
-                       f"(max |diff| {err:.2e}; tol {_SERVE_REL}); no kernel"
-                       f" launched; refused by name: {', '.join(refused)}"}
+            off = {k: _rel_norm(a, b) for k, a, b in zip("hz", (h, z),
+                                                        default[0])}
+            vs_default = (
+                f"; eager against float32 h {f32_err['h']:.2e}, z "
+                f"{f32_err['z']:.2e} (at most {_SERVE_F32_RATIO} x the "
+                f"default path's), against the default path's h "
+                f"{off['h']:.2e}, z {off['z']:.2e}")
+            if not all(f32_err[k] <= _SERVE_F32_RATIO * default[1][k]
+                       for k in "hz"):
+                raise AssertionError(f"{name}{vs_default}: default "
+                                     f"{default[1]}")
+        fns = {"eager": eager, "artifact": loaded}
+        # The host's times first: a profiler session just ended may still
+        # slow its launches.
+        host = {what: _enqueue_ms(torch, fn, iters=1)
+                for what, fn in fns.items()}
+        times = {}
+        for what, fn in fns.items():
+            ms = median_ms(torch, fn, iters=10)
+            times[what] = (f"{512e3 / ms:.1f} images/s ({ms:.3f} ms a batch "
+                           f"of 512 by events, "
+                           f"{_forward_device_ms(torch, fn):.3f} device, "
+                           f"{host[what]:.3f} host ms to enqueue)")
+        size_mb = os.path.getsize(path) / 1e6
+        print(f"  serving {name}: export {export_s:.1f} s, load "
+              f"{load_s:.1f} s, artifact {size_mb:.1f} MB; eager "
+              f"{times['eager']}, artifact {times['artifact']}; {rel:.2e} "
+              f"off in relative norm, max |diff| {err:.2e}{vs_default}; on "
+              f"{smi}", flush=True)
+        done.append(f"{name} {rel:.2e} (max |diff| {err:.2e}), "
+                    f"launches {launches or 'none'}{vs_default}")
+        del model, served, outs, h, z, sh, sz
+        os.remove(path)
+        _release(torch, {})
+    return {"summary": f"batch 512, h and z of each loaded artifact against "
+                       f"the eager forward in relative norm (tol "
+                       f"{_SERVE_REL}) and the port's kernels it launched: "
+                       + "; ".join(done)}
 
 
 def _epoch_categories(torch, prof, span, steps):
@@ -3994,6 +4162,18 @@ def main() -> int:
         rate = sl["steps_per_s"]
         _release(torch, sl)
         measure_phase(torch, info["smi"], rate, prof["busy_ms"])
+        return 0
+    if sys.argv[1:] == ["serving"]:
+        # The serving phase straight after the pretrain phase whose export
+        # it serves, three times over in one process.
+        build()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+        try:
+            pre = pretrain_phase(torch, info["smi"], tmp)
+            for _ in range(3):
+                serving_phase(torch, info["smi"], pre, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
         return 0
     if sys.argv[1:] == ["b6_split"]:
         # Only B6's time split (see _b6_split), e.g. on an archive of an

@@ -40,18 +40,24 @@ over a workspace (``workspace_bytes``).
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel, or raises ``ValueError`` for operands the kernel
 cannot take; a build or launch failure propagates. Each launch adds one
-to the wrapper's ``launches``.
+to the wrapper's ``launches``. B6f's wrapper is the operator
+``simclr_tpu_torch::bottleneck_fwd`` (``registry``), so that
+``torch.export`` traces it. Besides x and the weights it takes the six
+affines as one vector (``pack_affines``) and the forward half of the
+packed weights (``forward_half``: empty for CPU tensors, whose kernel,
+the plain version, reads the weights); its CUDA kernel is
+``bottleneck_fwd_cuda``.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from simclr_tpu_torch.ops.kernels import _build, conv64
+from simclr_tpu_torch.ops.kernels._cache import trace_safe_cache
 from simclr_tpu_torch.ops.kernels.conv64 import nhwc_operand, rot180_swap
 
 WIDTHS = (64, 128, 256, 512)   # C, the bottleneck width (csrc Cfg)
@@ -145,6 +151,11 @@ def fused_bottleneck_bwd_plain(x, w1, w2, w3, affines, g):
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
+def weight_shapes(c: int) -> tuple:
+    """Shapes of w1, w2, w3 at width c."""
+    return (c, 4 * c, 1, 1), (c, c, 3, 3), (4 * c, c, 1, 1)
+
+
 def _xor_index(device) -> torch.Tensor:
     """[row % 8][chunk] -> the chunk stored there: c ^ (row % 8)."""
     r = torch.arange(8, device=device)
@@ -186,7 +197,7 @@ def _pack_order(w1, w2, w3, backward: bool) -> torch.Tensor:
                       for p, np_ in zip(parts, pass_widths(c))])
 
 
-@functools.lru_cache(maxsize=None)
+@trace_safe_cache
 def _pack_index(c: int, backward: bool, device: torch.device) -> torch.Tensor:
     """Where each packed element comes from in cat(w1, w2, w3) flattened:
     the packing run once on the positions themselves."""
@@ -207,6 +218,11 @@ def pack_weights(w1, w2, w3, backward: bool) -> torch.Tensor:
     ``rot180_swap(w2)`` like w2, w1^T (4C, C); B6b takes both halves, and
     the autograd function packs the forward half once a step for B6f and
     B6b. One gather with a cached index (three kernels a half)."""
+    c = w1.shape[0]
+    if c not in WIDTHS or tuple(t.shape for t in (w1, w2, w3)) != (
+            weight_shapes(c)):
+        raise ValueError(f"pack_weights: no kernel takes weights of shapes "
+                         f"{[tuple(t.shape) for t in (w1, w2, w3)]}")
     flat = torch.cat([w.reshape(-1) for w in (w1, w2, w3)]).to(torch.bfloat16)
     return flat.index_select(
         0, _pack_index(w1.shape[0], backward, flat.device))
@@ -336,43 +352,80 @@ def workspace_bytes(n: int, h: int, w: int, c: int, sms: int) -> int:
             + up(-(-(-(-rows // 64)) // 64) * cols * 4) + up(wpart))
 
 
-def _pack_affines(affines: Sequence[torch.Tensor]) -> torch.Tensor:
+def affine_sizes(c: int) -> tuple:
+    """Lengths of (A1, B1, A2, B2, A3, B3) at width c."""
+    return (c, c, c, c, 4 * c, 4 * c)
+
+
+def pack_affines(affines: Sequence[torch.Tensor], c: int) -> torch.Tensor:
+    """The six affines as the kernels read them: one float32 vector."""
+    if tuple(v.numel() for v in affines) != affine_sizes(c):
+        raise ValueError(f"the affines of a block of width {c} have "
+                         f"{affine_sizes(c)} entries, got "
+                         f"{tuple(v.numel() for v in affines)}")
     return torch.cat([v.reshape(-1).to(torch.float32) for v in affines])
 
 
-def _check(name: str, x: torch.Tensor, w1, w2, w3, affines, *others):
+def _check(name: str, x: torch.Tensor, c: int, on_device, *others):
+    """Raise unless the kernels take x at width c, the tensors
+    ``on_device`` lie on x's device and ``others`` have x's shape and
+    type. The weights' shapes and the affines' sizes are checked where
+    they are packed (``pack_weights``, ``pack_affines``)."""
     if x.device.type != "cuda":
         raise ValueError(f"no bottleneck kernel for device {x.device}")
-    c = w1.shape[0]
-    shapes = ((c, 4 * c, 1, 1), (c, c, 3, 3), (4 * c, c, 1, 1))
-    sizes = (c, c, c, c, 4 * c, 4 * c)
     if (not supports(x, c)
-            or tuple(t.shape for t in (w1, w2, w3)) != shapes
-            or tuple(v.numel() for v in affines) != sizes
-            or any(t.device != x.device for t in (w1, w2, w3, *affines))
+            or any(t.device != x.device for t in on_device)
             or any(t.shape != x.shape or t.dtype != x.dtype
                    or t.device != x.device for t in others)):
         raise ValueError(
-            f"{name} does not support operands "
-            f"{[(tuple(u.shape), u.dtype) for u in (x, w1, w2, w3)]} "
-            f"(see bottleneck.supports)")
+            f"{name} does not support x {tuple(x.shape)} {x.dtype} at "
+            f"width {c} (see bottleneck.supports)")
 
 
 def bottleneck_fwd(x, w1, w2, w3, affines, packed=None) -> torch.Tensor:
-    """B6f: the block's output (N, 4C, H, W) in bf16. ``packed``: the
-    forward half of ``pack_weights``, if the caller has it."""
-    if x.device.type == "cpu":
-        return fused_bottleneck_plain(x, w1, w2, w3, affines)
-    _check("bottleneck_fwd", x, w1, w2, w3, affines)
+    """B6f: the block's output (N, 4C, H, W) in bf16, through the operator
+    ``simclr_tpu_torch::bottleneck_fwd``. ``packed``: the forward half of
+    ``pack_weights``, if the caller has it."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no bottleneck kernel for device {x.device}")
+    aff = pack_affines(affines, w1.shape[0])
+    if packed is None:
+        packed = forward_half(x, w1, w2, w3)
+    return torch.ops.simclr_tpu_torch.bottleneck_fwd(x, w1, w2, w3, aff,
+                                                     packed)
+
+
+def forward_half(x, w1, w2, w3) -> torch.Tensor:
+    """B6f's packed-weights operand: for CUDA tensors the forward half of
+    ``pack_weights``; for CPU ones, whose kernel (the plain version) reads
+    the weights as they are, an empty tensor."""
+    if x.device.type == "cuda":
+        return pack_weights(w1, w2, w3, False)
+    return torch.empty(0, dtype=torch.bfloat16)
+
+
+def bottleneck_fwd_cuda(x, w1, w2, w3, aff, packed) -> torch.Tensor:
+    """The operator's CUDA kernel: B6f's launch, counted in
+    ``bottleneck_fwd.launches``; raises for operands it cannot take."""
+    c = w1.shape[0]
+    _check("bottleneck_fwd", x, c, (aff, packed))
+    if ((aff.numel(), aff.dtype, packed.numel(), packed.dtype)
+            != (sum(affine_sizes(c)), torch.float32, 17 * c * c,
+                torch.bfloat16)):
+        raise ValueError(f"bottleneck_fwd needs pack_affines' vector "
+                         f"({sum(affine_sizes(c))} float32) and the forward "
+                         f"half of pack_weights ({17 * c * c} bf16), got "
+                         f"{aff.numel()} {aff.dtype} and {packed.numel()} "
+                         f"{packed.dtype}")
     xs = nhwc_operand(x)
-    wp = pack_weights(w1, w2, w3, False) if packed is None else packed
-    aff = _pack_affines(affines)
+    aff, packed = aff.contiguous(), packed.contiguous()
     out = torch.empty_like(xs, memory_format=torch.channels_last)
     n, f, h, w = x.shape
     with torch.cuda.device(x.device):
         status = _build.library().bottleneck_fwd(
-            xs.data_ptr(), wp.data_ptr(), aff.data_ptr(), out.data_ptr(),
-            n, h, w, f // 4, torch.cuda.current_stream().cuda_stream)
+            xs.data_ptr(), packed.data_ptr(), aff.data_ptr(),
+            out.data_ptr(), n, h, w, f // 4,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(status, "bottleneck_fwd")
     bottleneck_fwd.launches += 1
     return out
@@ -387,11 +440,11 @@ def bottleneck_bwd(x, w1, w2, w3, affines, g,
     packed here)."""
     if x.device.type == "cpu":
         return fused_bottleneck_bwd_plain(x, w1, w2, w3, affines, g)
-    _check("bottleneck_bwd", x, w1, w2, w3, affines, g)
+    aff = pack_affines(affines, w1.shape[0])
+    _check("bottleneck_bwd", x, w1.shape[0], (w1, w2, w3, aff), g)
     xs, gs = nhwc_operand(x), nhwc_operand(g)
     wp = pack_weights(w1, w2, w3, False) if packed is None else packed
     wt = pack_weights(w1, w2, w3, True)
-    aff = _pack_affines(affines)
     n, f, h, w = x.shape
     c = f // 4
     lib = _build.library()
@@ -421,9 +474,8 @@ class _FusedBottleneck(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, w2, w3, *affines):
         # The forward half of the packed weights, once a step for B6f and
-        # B6b (on the CPU the plain versions take the weights as they are).
-        packed = (pack_weights(w1, w2, w3, False) if x.device.type == "cuda"
-                  else None)
+        # B6b.
+        packed = forward_half(x, w1, w2, w3)
         ctx.save_for_backward(x, w1, w2, w3, *affines)
         ctx.packed = packed
         return bottleneck_fwd(x, w1, w2, w3, affines, packed)

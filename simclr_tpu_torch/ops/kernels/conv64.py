@@ -43,18 +43,21 @@ batch-on-lanes TPU layout and do not apply.
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel, or raises ``ValueError`` for operands the kernel
 cannot take; a build or launch failure propagates. Each launch adds one
-to the wrapper's ``launches``.
+to the wrapper's ``launches``. B4f's wrapper is the operator
+``simclr_tpu_torch::conv_c64`` (``registry``), so that ``torch.export``
+traces it: its CPU kernel is the plain version, its CUDA kernel
+``conv_c64_cuda``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
 
 from simclr_tpu_torch.ops.kernels import _build
+from simclr_tpu_torch.ops.kernels._cache import trace_safe_cache
 
 C = 64
 TAPS = 9
@@ -80,7 +83,7 @@ def rot180_swap(w: torch.Tensor) -> torch.Tensor:
     return w.flip(2, 3).transpose(0, 1)
 
 
-@functools.cache
+@trace_safe_cache
 def _pack_index(device: torch.device) -> torch.Tensor:
     """Flat index into a (64, 64, 3, 3) filter of each element of
     ``pack_filter``'s output, built once per device."""
@@ -184,9 +187,16 @@ def _check(name: str, x: torch.Tensor, *others: torch.Tensor) -> None:
 
 
 def conv_c64(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """B4f: conv3x3(x, w), stride 1, SAME, in x's type (bf16)."""
-    if x.device.type == "cpu":
-        return conv3x3_c64_plain(x, w)
+    """B4f: conv3x3(x, w), stride 1, SAME, in x's type (bf16), through the
+    operator ``simclr_tpu_torch::conv_c64``."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no conv64 kernel for device {x.device}")
+    return torch.ops.simclr_tpu_torch.conv_c64(x, w)
+
+
+def conv_c64_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The operator's CUDA kernel: B4f's launch, counted in
+    ``conv_c64.launches``; raises for operands it cannot take."""
     _check("conv64_fwd", x)
     if tuple(w.shape) != _SHAPE_W or w.device != x.device:
         raise ValueError(f"conv64_fwd needs a {_SHAPE_W} filter on "

@@ -27,17 +27,20 @@ passes the gate raises.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel or raises ``ValueError``. Each launch adds one to the
-wrapper's ``launches``.
+wrapper's ``launches``. B5f's wrapper is the operator
+``simclr_tpu_torch::winograd_fwd`` (``registry``), so that
+``torch.export`` traces it: its CPU kernel is the plain version, its CUDA
+kernel ``winograd_fwd_cuda``; the filter transform before it stays
+outside the operator.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 import torch.nn.functional as F
 
 from simclr_tpu_torch.ops.kernels import _build
+from simclr_tpu_torch.ops.kernels._cache import trace_safe_cache
 from simclr_tpu_torch.ops.kernels.conv64 import nhwc_operand, rot180_swap
 
 # F(2x2, 3x3) filter transform (Lavin & Gray 2015, arXiv:1509.09308); B^T
@@ -63,7 +66,7 @@ def supported(x_shape, w_shape, stride) -> bool:
             and n * h * w * max(c, k) < 2 ** 31)
 
 
-@functools.cache
+@trace_safe_cache
 def _gmat(device: torch.device) -> torch.Tensor:
     """G on ``device``, copied there once (a copy a call could not be
     captured in a CUDA graph)."""
@@ -224,9 +227,16 @@ def _check(name: str, x: torch.Tensor, k: int, *others) -> None:
 
 def winograd_fwd(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """B5f: the Winograd convolution of x (N, C, H, W) with the
-    transformed filter u (16, C, K) bf16, in x's type."""
-    if x.device.type == "cpu":
-        return winograd_fwd_plain(x, u)
+    transformed filter u (16, C, K) bf16, in x's type, through the
+    operator ``simclr_tpu_torch::winograd_fwd``."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no Winograd kernel for device {x.device}")
+    return torch.ops.simclr_tpu_torch.winograd_fwd(x, u)
+
+
+def winograd_fwd_cuda(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The operator's CUDA kernel: B5f's launch, counted in
+    ``winograd_fwd.launches``; raises for operands it cannot take."""
     n, c, h, w = x.shape
     k = u.shape[2]
     _check("winograd_fwd", x, k, u)

@@ -12,12 +12,15 @@ model's output (``(h, z)`` for a ``SimCLR``) out, as the JAX artifact.
   ``input_shape`` are baked in (``models/resnet.py:MCDropout.baked``), so
   the artifact is deterministic and equals the eager forward given that
   generator.
-* **Kernel flags.** Under ``conv64_pallas``, ``winograd_conv2`` and
-  ``fuse_identity_blocks`` the eval forward runs kernels B4f, B5f and B6f,
-  whose wrappers launch through ``ctypes`` on raw pointers, which
-  ``torch.export``'s fake tensors cannot trace. ``export_forward`` refuses
-  these flags with a ``ValueError`` rather than export the plain version
-  in a kernel's place.
+* **Kernel flags.** Under ``conv64_pallas``, ``winograd_conv2`` (alone or
+  together) and ``fuse_identity_blocks`` the eval forward runs kernels
+  B4f, B5f and B6f, which are PyTorch operators
+  (``ops/kernels/registry.py``): the artifact holds one node of each per
+  launch, and the weight transforms before them (B5f's filter transform,
+  B6f's packing) as graph nodes over the baked weights. Loading such an
+  artifact needs the operators registered: ``load_forward`` imports the
+  registry, which needs no model class and no CUDA. On the card the
+  loaded artifact launches the kernels; on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -29,10 +32,8 @@ import torch
 import torch.nn as nn
 
 from simclr_tpu_torch.models.resnet import MCDropout
-
-# The ModelConfig flags that put a hand-written kernel into the eval
-# forward.
-KERNEL_FLAGS = ("conv64_pallas", "winograd_conv2", "fuse_identity_blocks")
+# Registers the operators that a kernel-flag artifact holds.
+from simclr_tpu_torch.ops.kernels import registry  # noqa: F401
 
 
 class _NHWCForward(nn.Module):
@@ -47,25 +48,15 @@ class _NHWCForward(nn.Module):
         return self.model(x.permute(0, 3, 1, 2), None)
 
 
-def _check_exportable(model: nn.Module) -> None:
-    """Raise ValueError naming the first kernel flag that ``model``'s
-    config sets (module docstring)."""
-    cfg = getattr(model, "cfg", None)
-    for flag in KERNEL_FLAGS:
-        if cfg is not None and getattr(cfg, flag, False):
-            raise ValueError(
-                f"export_forward: {flag}=True puts a hand-written kernel in "
-                "the eval forward, launched through ctypes, which "
-                "torch.export cannot trace; export the model without it "
-                "(its weights load into one without the flag)")
-
-
 @torch.no_grad()
-def _bake_masks(model: nn.Module, drops: Sequence[MCDropout],
-                input_shape: Sequence[int], device: torch.device,
-                dropout_seed: int) -> None:
-    """Draw every MC-dropout mask of one eval forward at ``input_shape``
-    from a generator seeded ``dropout_seed`` and fix them in ``baked``."""
+def _first_forward(model: nn.Module, drops: Sequence[MCDropout],
+                   input_shape: Sequence[int], device: torch.device,
+                   dropout_seed: int) -> None:
+    """One real eval forward at ``input_shape`` before the trace. It
+    builds what the kernel wrappers build lazily (index and constant
+    tensors, which the trace then holds as constants; on the card the
+    kernel library), and it draws every MC-dropout mask from a generator
+    seeded ``dropout_seed`` and fixes them in ``baked``."""
     gen = torch.Generator(device=device).manual_seed(dropout_seed)
     x = torch.zeros(tuple(input_shape), device=device)
     for m in drops:
@@ -88,14 +79,12 @@ def export_forward(
     float32 NHWC inputs of ``input_shape`` on the model's device, to
     ``path``. The model is left as it was (training flag, no baked
     masks)."""
-    _check_exportable(model)
     device = next(model.parameters()).device
     drops = [m for m in model.modules() if isinstance(m, MCDropout)]
     training = model.training
     model.eval()
     try:
-        if drops:
-            _bake_masks(model, drops, input_shape, device, dropout_seed)
+        _first_forward(model, drops, input_shape, device, dropout_seed)
         x = torch.zeros(tuple(input_shape), device=device)
         program = torch.export.export(_NHWCForward(model), (x,),
                                       strict=False)
@@ -111,5 +100,6 @@ def load_forward(path: str) -> Callable:
     """Read an artifact of ``export_forward``; returns a module mapping
     NHWC float32 images to the model's output, on the device it was
     exported from, its weights frozen (no autograd). No model class is
-    needed to load it."""
+    needed to load it; an artifact of a kernel flag needs the operators of
+    ``ops/kernels/registry.py``, which this module imports."""
     return torch.export.load(path).module().requires_grad_(False)
